@@ -1,0 +1,625 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases (any failure exits non-zero; nothing is caught):
+
+1. Build every CUDA kernel of ``haplohyped_tpu_torch/csrc`` (one ``nvcc``
+   each, started together) and print the card's name and power limit.
+2. Make a deployment-sized state on the device from ``--seed``: the GRCh38
+   autosomes chr1-chr12 at their true lengths (random codes), 128 donors with
+   SNVs at ~1.2 per kb per chromosome, and 100,000 BED regions of 200-2,000 bp.
+3. The main path: ``DeviceHaplotypeSampler`` with ``SamplerConfig(seq_length=
+   1000, batch_size=64)``, a few ``sample()`` calls and ``sample_many(16)``,
+   with the kernels' launch counts set to 0 just before and read just after,
+   and CUDA's sync debug mode raising on any host round-trip while sampling.
+   Every batch is then held bit-equal against the plain PyTorch version on
+   the same draws.
+4. Edge fixtures, kernel against plain, bit-equal: empty rows, a row that
+   overflows K, duplicate positions, windows crossing coarse-grid buckets, a
+   window clamped at the genome's end, and every B in {1, 61, 64, 4096} x L
+   in {256, 1000, 4080} x K in {8, 64, 128} on the deployment state.
+5. ``DeviceHaplotypeSampler.from_files`` on small gzip HDF5 files in the
+   reference layout, one batch against the plain version (where h5py is
+   installed).
+6. Times on the card: the kernel and the plain version per batch (device
+   busy time from ``torch.profiler``; the kernel also back to back behind a
+   sleep kernel with CUDA events), the kernel's bound, ``sample_many`` windows/s and ``sample()``
+   ms (host clock), and a ``torch.profiler`` trace of ``sample_many``.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import importlib.util
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from haplohyped_tpu_torch import (
+    CohortTensors,
+    DeviceHaplotypeSampler,
+    GenomeTensors,
+    SamplerConfig,
+)
+from haplohyped_tpu_torch.core.constants import (
+    INT32_MAX,
+    N_CODE,
+    SNP_STRUCT_DTYPE,
+    cohort_group_path,
+)
+from haplohyped_tpu_torch.ops import _build
+from haplohyped_tpu_torch.ops.haplotype_window import (
+    HaplotypeWindows,
+    encode_haplotype_windows,
+)
+from haplohyped_tpu_torch.ops.window_kernel import (
+    build_window_index,
+    encode_windows_kernel,
+)
+
+#: GRCh38 primary-assembly lengths of chr1-chr12 (2,077,042,982 bp): the
+#: largest set of autosomes whose concatenation int32 ``offsets`` address
+GRCH38_CHR1_12 = {
+    "chr1": 248_956_422, "chr2": 242_193_529, "chr3": 198_295_559,
+    "chr4": 190_214_555, "chr5": 181_538_259, "chr6": 170_805_979,
+    "chr7": 159_345_973, "chr8": 145_138_636, "chr9": 138_394_717,
+    "chr10": 133_797_422, "chr11": 135_086_622, "chr12": 133_275_309,
+}
+N_DONORS = 128
+SNV_PER_BP = 1.2e-3  # one human genome against the reference
+N_REGIONS = 100_000
+SEQ_LENGTH, BATCH, K_MAX = 1000, 64, 128
+
+#: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s
+HBM_BYTES_PER_S = 3.35e12
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# kernel-against-plain comparison
+# ---------------------------------------------------------------------------
+
+class Comparisons:
+    """Runs the kernel and the plain version on the same inputs, requires
+    every output bit-equal, and keeps the largest absolute difference."""
+
+    def __init__(self):
+        self.max_abs_err = 0
+        self.count = 0
+
+    def windows(self, got, want, what: str) -> None:
+        torch.cuda.synchronize()  # a fault in the kernel surfaces here
+        for name in ("hap1", "hap2", "n_variants", "overflow"):
+            g, w = getattr(got, name), getattr(want, name)
+            check(g.shape == w.shape and g.dtype == w.dtype, f"{what}: {name} shape/dtype")
+            err = int((g.int() - w.int()).abs().max()) if g.numel() else 0
+            self.max_abs_err = max(self.max_abs_err, err)
+            check(err == 0, f"{what}: {name} differs from the plain version (max |d| {err})")
+        self.count += 1
+
+    def encode(self, index, donor, chrom, start, L, K, what):
+        got = encode_windows_kernel(index, donor, chrom, start, L=L, K=K)
+        want = encode_haplotype_windows(*index.plain_args, donor, chrom, start, L=L, K=K)
+        self.windows(got, want, what)
+        return got
+
+
+# ---------------------------------------------------------------------------
+# phase 2: deployment-sized state, made on the device
+# ---------------------------------------------------------------------------
+
+def make_state(seed: int, device: torch.device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    names = list(GRCH38_CHR1_12)
+    lengths = np.array(list(GRCH38_CHR1_12.values()), np.int64)
+    padded = -(-lengths // 128) * 128
+    offsets = np.concatenate([[0], np.cumsum(padded)[:-1]])
+    G = int(padded.sum())
+    check(offsets[-1] < 2**31, "flat offsets must fit int32")
+    codes = torch.randint(0, 4, (G,), dtype=torch.int8, device=device, generator=g)
+    for off, n, p in zip(offsets, lengths, padded):
+        codes[off + n : off + p] = N_CODE
+    genome = GenomeTensors(names, codes, offsets.astype(np.int32), lengths.astype(np.int32))
+
+    # positions: a cumulative sum of gaps uniform on [1, 2/rate - 1] (mean
+    # 1/rate), so rows come sorted; V leaves room for +0.5% on the longest
+    C = len(names)
+    V = -(-int(lengths.max() * SNV_PER_BP * 1.005) // 128) * 128
+    gap_hi = round(2 / SNV_PER_BP) - 1
+    pos = torch.empty((N_DONORS, C, V), dtype=torch.int32, device=device)
+    ref, alt, p1, p2 = (torch.empty((N_DONORS, C, V), dtype=torch.int8, device=device)
+                        for _ in range(4))
+    counts = torch.empty((N_DONORS, C), dtype=torch.int32, device=device)
+    len_t = torch.as_tensor(lengths, device=device)[:, None]
+    off_t = torch.as_tensor(offsets, device=device)[:, None]
+    for d in range(N_DONORS):
+        gaps = torch.randint(1, gap_hi + 1, (C, V), dtype=torch.int32, device=device, generator=g)
+        p = torch.cumsum(gaps, dim=1, dtype=torch.int32) - 1
+        valid = p < len_t
+        r = codes[off_t + torch.minimum(p, len_t - 1)]  # REF is the genome's base
+        a = (r + torch.randint(1, 4, (C, V), dtype=torch.int8, device=device, generator=g)) % 4
+        ph = torch.randint(0, 2, (2, C, V), dtype=torch.int8, device=device, generator=g)
+        pos[d] = torch.where(valid, p, INT32_MAX)
+        ref[d] = torch.where(valid, r, 0)
+        alt[d] = torch.where(valid, a, 0)
+        p1[d] = torch.where(valid, ph[0], 0)
+        p2[d] = torch.where(valid, ph[1], 0)
+        counts[d] = valid.sum(dim=1, dtype=torch.int32)
+    donors = [f"donor{d:03d}" for d in range(N_DONORS)]
+    cohort = CohortTensors(donors, list(names), pos, ref, alt, p1, p2, counts)
+
+    # regions lie on chromosomes drawn by length, uniform within each
+    rng = np.random.default_rng(seed)
+    rc = rng.choice(C, size=N_REGIONS, p=lengths / lengths.sum())
+    s = (rng.random(N_REGIONS) * (lengths[rc] - 2000)).astype(np.int64)
+    regions = np.stack([s, s + rng.integers(200, 2001, N_REGIONS)], axis=1)
+    return genome, cohort, regions
+
+
+# ---------------------------------------------------------------------------
+# phase 4: edge fixtures (numpy, so the tests can hold them against JAX)
+# ---------------------------------------------------------------------------
+
+def _empty_cohort(D, C, V):
+    pos = np.full((D, C, V), INT32_MAX, np.int32)
+    ref, alt, p1, p2 = (np.zeros((D, C, V), np.int8) for _ in range(4))
+    return pos, ref, alt, p1, p2, np.zeros((D, C), np.int32)
+
+
+def edge_fixtures():
+    """``{name: (state, draws, L, K)}``; ``state`` is the plain version's
+    eight operands and ``draws`` its (donor, chrom, start), all numpy."""
+    fx = {}
+
+    # donor 0 empty; donor 1 a variant at every position (overflows K)
+    rng = np.random.default_rng(9)
+    genome = rng.integers(0, 5, size=4096, dtype=np.int8)
+    pos, ref, alt, p1, p2, counts = _empty_cohort(2, 1, 1280)
+    n = 1024
+    pos[1, 0, :n] = np.arange(n)
+    ref[1, 0, :n] = genome[:n]
+    alt[1, 0, :n] = (genome[:n] + 1) % 5
+    p1[1, 0, :n] = 1
+    counts[1, 0] = n
+    draws = (np.array([0, 1, 0, 1] * 4, np.int32), np.zeros(16, np.int32),
+             np.tile(np.array([0, 100, 900, 3968], np.int32), 4))
+    fx["empty_rows_and_overflow"] = (
+        (genome, np.zeros(1, np.int32), pos, ref, alt, p1, p2, counts), draws, 128, 8)
+
+    # three variants at one position: the last in file order wins
+    pos, ref, alt, p1, p2, counts = _empty_cohort(1, 1, 1280)
+    pos[0, 0, :3] = 10
+    alt[0, 0, :3] = [1, 2, 3]
+    p1[0, 0, :3] = 1
+    counts[0, 0] = 3
+    z = np.zeros(8, np.int32)
+    fx["duplicate_positions"] = (
+        (np.zeros(1024, np.int8), np.zeros(1, np.int32), pos, ref, alt, p1, p2, counts),
+        (z, z, z), 64, 8)
+
+    # a variant at every other base: windows straddle the coarse-grid bucket
+    # boundaries (index 512 * j sits at position 1024 * j)
+    rng = np.random.default_rng(11)
+    genome = rng.integers(0, 5, size=8192, dtype=np.int8)
+    pos, ref, alt, p1, p2, counts = _empty_cohort(1, 1, 4096)
+    p = np.arange(4096, dtype=np.int32) * 2
+    pos[0, 0] = p
+    ref[0, 0] = genome[p]
+    alt[0, 0] = (genome[p] + 1) % 5
+    p1[0, 0] = rng.integers(0, 2, 4096)
+    p2[0, 0] = rng.integers(0, 2, 4096)
+    counts[0, 0] = 4096
+    L = 512
+    st = np.array([1024 * j - L // 2 for j in range(1, 8)]
+                  + [1024 - 1, 0, 100, 3000, 7000, 4095, 7680], np.int32)
+    z = np.zeros(st.size, np.int32)
+    fx["bucket_crossing"] = (
+        (genome, np.zeros(1, np.int32), pos, ref, alt, p1, p2, counts), (z, z, st), L, 64)
+
+    # a chromosome shorter than L at the genome's end: the slice clamps to
+    # G - L while variants stay at pos - start
+    rng = np.random.default_rng(21)
+    genome = rng.integers(0, 5, size=700, dtype=np.int8)
+    pos, ref, alt, p1, p2, counts = _empty_cohort(1, 2, 128)
+    pos[0, 1, :3] = [5, 30, 59]
+    alt[0, 1, :3] = [1, 2, 3]
+    p1[0, 1, :3] = 1
+    p2[0, 1, :3] = [0, 1, 1]
+    counts[0, 1] = 3
+    fx["genome_end_clamp"] = (
+        (genome, np.array([0, 640], np.int32), pos, ref, alt, p1, p2, counts),
+        (np.zeros(3, np.int32), np.ones(3, np.int32), np.zeros(3, np.int32)), 256, 8)
+    return fx
+
+
+def random_draws(sampler, B, L, gen):
+    """(donor, chrom, start) of B windows anywhere in the state, start 0 and
+    the clamp limit included."""
+    dev = sampler.device
+    D, C = sampler.cohort.num_donors, len(sampler.genome.chrom_names)
+    d = torch.randint(0, D, (B,), dtype=torch.int32, device=dev, generator=gen)
+    c = torch.randint(0, C, (B,), dtype=torch.int32, device=dev, generator=gen)
+    lim = (torch.as_tensor(sampler.genome.lengths, device=dev)[c.long()] - L).clamp(min=0)
+    s = (torch.rand(B, device=dev, generator=gen) * (lim + 1).double()).long().clamp(max=lim)
+    s[0] = 0
+    s[-1] = lim[-1]
+    return d, c, s.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: small files in the reference layout
+# ---------------------------------------------------------------------------
+
+def write_small_files(dirname: str, seed: int):
+    import h5py
+
+    rng = np.random.default_rng(seed)
+    chroms = {"chr21": 46_000, "chr22": 51_000}
+    donors = ["d0", "d1", "d2"]
+    seqs = {c: rng.integers(0, 4, n).astype(np.int8) for c, n in chroms.items()}
+    ref_h5 = os.path.join(dirname, "reference_genome.h5")
+    with h5py.File(ref_h5, "w") as f:
+        for i, (c, codes) in enumerate(seqs.items()):
+            f.create_dataset(f"{c}/sequence", data=np.eye(5, dtype=np.int8)[codes],
+                             compression="gzip")
+            if i:  # one chromosome also carries the int8 codes dataset
+                f.create_dataset(f"{c}/codes", data=codes, compression="gzip")
+    cohort_h5 = os.path.join(dirname, "cohort.h5")
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    with h5py.File(cohort_h5, "w") as f:
+        for d in donors:
+            for c, n in chroms.items():
+                k = n // 100
+                t = np.zeros(k, dtype=SNP_STRUCT_DTYPE)
+                t["chrom"] = c.encode()
+                t["start"] = np.sort(rng.choice(n, size=k, replace=False))
+                t["stop"] = t["start"] + 1
+                r = seqs[c][t["start"]]
+                t["ref"] = bases[r].view("S1")
+                t["alt"] = bases[(r + rng.integers(1, 4, k)) % 4].view("S1")
+                t["phase1"] = rng.integers(0, 2, k)
+                t["phase2"] = rng.integers(0, 2, k)
+                f.create_dataset(cohort_group_path(d, c.removeprefix("chr")) + "/snp_data",
+                                 data=t, compression="gzip")
+    bed = os.path.join(dirname, "regions.bed")
+    with open(bed, "w") as f:
+        for _ in range(500):
+            c = rng.choice(list(chroms))
+            s = int(rng.integers(0, chroms[c] - 2000))
+            f.write(f"{c}\t{s}\t{s + int(rng.integers(200, 2001))}\n")
+    samples = os.path.join(dirname, "samples.txt")
+    with open(samples, "w") as f:
+        f.write("\n".join(donors) + "\n")
+    return bed, cohort_h5, ref_h5, samples, seqs
+
+
+def check_from_files(tmp: str, seed: int, cfg: SamplerConfig, cmp: Comparisons) -> None:
+    bed, cohort_h5, ref_h5, samples, seqs = write_small_files(tmp, seed)
+    before = encode_windows_kernel.launches
+    fs = DeviceHaplotypeSampler.from_files(bed, cohort_h5, ref_h5, samples, config=cfg)
+    b = fs.sample()
+    check(encode_windows_kernel.launches == before + 1, "from_files sampler launched once")
+    cmp.windows(b, fs.windows_from_draws(*fs.draw_indices(0), kernel="baseline"), "from_files")
+    check(fs.genome.chrom_names == list(seqs), "from_files chromosomes")
+    for c, off, n in zip(seqs, fs.genome.offsets, fs.genome.lengths):
+        check(np.array_equal(fs.genome.codes_flat[off:off + n], seqs[c]), f"{c} codes")
+    check(int(b.n_variants.sum()) > 0, "from_files windows hold variants")
+    log("from_files: gzip cohort + reference HDF5 loaded; batch bit-equal to the plain version")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: timing
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _sleep_cycles_per_ms() -> float:
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(20_000_000)
+    b.record()
+    b.synchronize()
+    return 20_000_000 / a.elapsed_time(b)
+
+
+def profiled_ms(fn, args_list) -> float:
+    """Device busy time per call of ``fn`` over ``args_list``: the sum of the
+    durations of every device op ``torch.profiler`` (CUPTI) records, over the
+    number of calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for args in args_list:
+            fn(*args)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(dev) >= len(args_list), "the profiler recorded no device ops")
+    return sum(e.time_range.elapsed_us() for e in dev) / len(args_list) / 1e3
+
+
+def device_ms(fn, args_list):
+    """``(device ms, host ms)`` per call of ``fn`` over ``args_list``.
+
+    The host's time is that of issuing every call once.  For the device's, a
+    sleep kernel holds the stream while the host issues every call again, so
+    the two CUDA events around them time the device's work alone (gaps
+    between launches on the device included), not the wrapper's host time.
+    The first event must still be pending when the host is done, or the
+    host fell behind and the timing is refused."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for args in args_list:
+        fn(*args)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = 5 * host_ms + 100
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(_sleep_cycles_per_ms() * sleep_ms))
+    a.record()
+    t0 = time.perf_counter()
+    for args in args_list:
+        fn(*args)
+    b.record()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    pending = not a.query()
+    b.synchronize()
+    check(pending, f"the host fell behind the device (slept {sleep_ms:.1f} ms, issued in "
+          f"{issue_ms:.1f} ms, first pass {host_ms:.1f} ms); timing refused")
+    return a.elapsed_time(b) / len(args_list), host_ms / len(args_list)
+
+
+def trace_sample_many(sampler, n_calls: int) -> str:
+    """Device busy share and the heaviest device ops of ``sample_many(16)``
+    under ``torch.profiler`` (the profiler's own host cost inflates the
+    wall time, so the idle share is an upper bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sampler.sample_many(16)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            sampler.sample_many(16)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return "trace: the profiler recorded no device events"
+    by_name: dict[str, list[float]] = {}
+    for e in dev:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    busy = sum(sum(v) for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
+    rows = "; ".join(
+        f"{name[:60]} x{len(v)} {sum(v) / n_calls:.1f} us/call" for name, v in top
+    )
+    return (f"trace sample_many(16) x{n_calls}: wall {wall_us / n_calls:.1f} us/call, "
+            f"device busy {busy / n_calls:.1f} us/call, idle share "
+            f"{1 - busy / wall_us:.3f}; {len(dev) / n_calls:.0f} device ops/call; top: {rows}")
+
+
+def bound_ms(batches, outs, L, K, V):
+    """Least time for the same work on an H100 SXM: each byte read once and
+    written once, over 3.35 TB/s.  Per window: (donor, chrom, start) 12 B,
+    offset and count 8 B, L genome bytes, two binary searches of
+    ceil(log2(V+1)) probes of 4 B, 6 B (position, packed codes) per applied
+    variant, and 2L + 8 output bytes.  Mean over the given batches."""
+    probes = 2 * math.ceil(math.log2(V + 1)) * 4
+    total = 0
+    for (d, _, _), out in zip(batches, outs):
+        B = d.shape[0]
+        n_apply = int(out.n_variants.clamp(max=K).sum())
+        total += B * (12 + 8 + L + probes + 2 * L + 8) + 6 * n_apply
+    return total / len(batches) / HBM_BYTES_PER_S * 1e3
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    cmp = Comparisons()
+
+    # -- 1. build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    logs = _build.build_kernels()
+    log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    card = card_line()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    # -- 2. state -----------------------------------------------------------
+    t0 = time.perf_counter()
+    genome, cohort, regions = make_state(args.seed, dev)
+    torch.cuda.synchronize()
+    D, C, V = cohort.pos.shape
+    log(f"state: genome {genome.codes_flat.numel():,} codes over {C} chromosomes; "
+        f"cohort D={D} C={C} V={V:,} ({int(cohort.counts.sum()):,} SNVs); "
+        f"{len(regions):,} regions; made in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the device")
+    log("reduced: none (full GRCh38 chr1-chr12 lengths, 128 donors, "
+        "100,000 regions, L=1000, B=64, K=128)")
+
+    # -- 3. main path -------------------------------------------------------
+    cfg = SamplerConfig(seq_length=SEQ_LENGTH, batch_size=BATCH)
+    encode_windows_kernel.launches = 0
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sampler = DeviceHaplotypeSampler(genome, cohort, regions, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")  # no host round-trip while sampling
+    singles = [sampler.sample() for _ in range(3)]
+    many = sampler.sample_many(16)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    main_launches = encode_windows_kernel.launches
+    index_bytes = sampler.index.sub12.nbytes + sampler.index.grid.nbytes
+    log(f"main path: sampler construction (index build) {t1 - t0:.3f} s, "
+        f"{(torch.cuda.memory_allocated() - mem0) / 2**30:.3f} GiB more allocated "
+        f"(index {index_bytes / 2**30:.3f} GiB); 3 x sample() + sample_many(16) "
+        f"{time.perf_counter() - t1:.3f} s; kernel launches {main_launches}; "
+        f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    check(sampler.kernel == "kernel", "auto must pick the kernel on CUDA")
+    check(main_launches > 0, "the main path never launched the window kernel")
+
+    for step, b in enumerate(singles):
+        check(b.hap1 is b.hap1_codes and b.hap1.shape == (BATCH, SEQ_LENGTH), "batch form")
+        want = sampler.windows_from_draws(*sampler.draw_indices(step), kernel="baseline")
+        cmp.windows(b, want, f"sample() step {step}")
+    draws = [sampler.draw_indices(s) for s in range(3, 19)]
+    want = sampler.windows_from_draws(*(torch.cat(t) for t in zip(*draws)), kernel="baseline")
+    flat = HaplotypeWindows(*(t.reshape(-1, *t.shape[2:]) for t in many[2:]))
+    cmp.windows(flat, HaplotypeWindows(*want[2:]), "sample_many(16)")
+    allcodes = torch.cat([many.hap1_codes.flatten(), many.hap2_codes.flatten()])
+    check(int(allcodes.min()) >= 0 and int(allcodes.max()) <= N_CODE, "codes in [0, 4]")
+    check(torch.equal(many.overflow, (many.n_variants - K_MAX).clamp(min=0)), "overflow")
+    mean_nv = float(many.n_variants.float().mean())
+    check(mean_nv > 0, "windows hold variants")
+    log(f"main path checks: bit-equal to the plain version; mean in-window "
+        f"SNVs {mean_nv:.3f}, max {int(many.n_variants.max())}")
+
+    # -- 4. edge fixtures ---------------------------------------------------
+    for name, (state, dr, L, K) in edge_fixtures().items():
+        idx = build_window_index(*(torch.from_numpy(a).to(dev) for a in state))
+        cmp.encode(idx, *(torch.from_numpy(a).to(dev) for a in dr), L, K, name)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    for B in (1, 61, 64, 4096):
+        for L in (256, 1000, 4080):
+            for K in (8, 64, 128):
+                d, c, s = random_draws(sampler, B, L, gen)
+                cmp.encode(sampler.index, d, c, s, L, K, f"B={B} L={L} K={K}")
+    log(f"edge fixtures: {cmp.count} kernel/plain comparisons bit-equal so far")
+
+    # -- 5. from_files ------------------------------------------------------
+    if importlib.util.find_spec("h5py") is None:
+        log("from_files: not run: h5py is not installed on this machine "
+            "(tests/test_torch_sampler.py holds from_files against the JAX package)")
+    else:
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+            check_from_files(tmp, args.seed, cfg, cmp)
+
+    # -- 6. times -----------------------------------------------------------
+    # host clocks first: a profiler session leaves the launch path slower
+    lat = {"sample()": [], "sample_many(16)": []}
+    for _ in range(50):
+        for name, fn in (("sample()", sampler.sample),
+                         ("sample_many(16)", lambda: sampler.sample_many(16))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            lat[name].append((time.perf_counter() - t0) * 1e3)
+    n_rep = 20
+    t0 = time.perf_counter()
+    for _ in range(n_rep):
+        sampler.sample_many(16)
+    torch.cuda.synchronize()
+    wps = n_rep * 16 * BATCH / (time.perf_counter() - t0)
+    for name, v in lat.items():
+        q = np.percentile(v, [50, 80])
+        log(f"[{card}] {name} at B=64: {q[0]:.4f} ms median, {q[1]:.4f} ms p80 "
+            f"(50 calls, host clock, synchronized)")
+    log(f"[{card}] sample_many(16) pipelined: {wps:,.0f} windows/s ({n_rep} calls, "
+        f"one synchronize)")
+
+    index = sampler.index
+    batches = []
+    for step in range(1000, 1200):  # fresh random windows: the L2 is cold for most
+        r, d, c = sampler.draw_indices(step)
+        batches.append((d, c, sampler.window_starts(r, c)))
+
+    def kern(d, c, s):
+        return encode_windows_kernel(index, d, c, s, L=SEQ_LENGTH, K=K_MAX)
+
+    def plain(d, c, s):
+        return encode_haplotype_windows(*index.plain_args, d, c, s, L=SEQ_LENGTH, K=K_MAX)
+
+    ev_kernel, host_kernel = device_ms(kern, batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in batches[:40]:
+        plain(*x)
+    host_plain = (time.perf_counter() - t0) * 1e3 / 40
+    ms_kernel = profiled_ms(kern, batches)
+    # the plain version's many launches a batch fill the launch queue behind
+    # a sleeping device, so its device time comes from the profiler alone
+    ms_plain = profiled_ms(plain, batches[:40])
+    outs = [kern(*x) for x in batches]
+    ms_bound = bound_ms(batches, outs, SEQ_LENGTH, K_MAX, V)
+    for (d, c, s), out in zip(batches[:8], outs[:8]):
+        cmp.windows(out, plain(d, c, s), "timed batch")
+    log(f"[{card}] window kernel B=64 L=1000 K=128, {len(batches)} batches of fresh "
+        f"windows: {ms_kernel:.5f} ms/batch device busy (profiler), "
+        f"{ev_kernel:.5f} ms/batch back to back (CUDA events), "
+        f"{host_kernel:.5f} ms/call wrapper host time; bound {ms_bound:.6f} ms "
+        f"(bytes, 3.35 TB/s)")
+    log(f"[{card}] plain version, same shape, 40 batches: {ms_plain:.5f} ms/batch "
+        f"device busy (profiler), {host_plain:.5f} ms/call host time")
+    log(f"[{card}] " + trace_sample_many(sampler, 10))
+
+    kernels = [{
+        "name": "window_kernel",
+        "route": "cuda",
+        "source": "haplohyped_tpu_torch/csrc/window_kernel.cu",
+        "replaces": "haplohyped_tpu/ops/pallas_window.py:178",
+        "launches": main_launches,
+        "max_abs_err": cmp.max_abs_err,
+        "ms": ms_kernel,
+        "plain_ms": ms_plain,
+        "bound_ms": ms_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }]
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

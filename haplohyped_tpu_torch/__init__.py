@@ -1,0 +1,26 @@
+"""haplohyped_tpu_torch — the PyTorch/CUDA port of haplohyped_tpu for one
+NVIDIA H100.
+
+This slice holds the training-time data path: cohort and reference HDF5 to
+device tensors, the variant-aware haplotype window encode (a hand-written
+Hopper kernel beside its plain PyTorch version) and the on-device sampler.
+It imports torch and numpy (h5py only where an HDF5 file is read), and
+nothing of JAX or ``haplohyped_tpu``.
+Entry points run on ``device="cuda"`` unless the caller passes
+``device="cpu"``.
+"""
+
+from haplohyped_tpu_torch.core.config import SamplerConfig
+from haplohyped_tpu_torch.data.cohort import CohortTensors
+from haplohyped_tpu_torch.data.genome import GenomeTensors
+from haplohyped_tpu_torch.data.regions import load_bed_regions
+from haplohyped_tpu_torch.data.sampler import DeviceHaplotypeSampler, HaplotypeBatch
+
+__all__ = [
+    "CohortTensors",
+    "DeviceHaplotypeSampler",
+    "GenomeTensors",
+    "HaplotypeBatch",
+    "SamplerConfig",
+    "load_bed_regions",
+]

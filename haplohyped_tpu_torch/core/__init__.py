@@ -1,0 +1,1 @@
+"""core layer of haplohyped_tpu_torch."""

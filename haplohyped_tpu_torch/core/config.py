@@ -1,0 +1,67 @@
+"""Sampler configuration and device resolution."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from haplohyped_tpu_torch.core.constants import DEFAULT_SEQ_LENGTH
+
+#: window-encode implementations the port has
+WINDOW_KERNELS = ("auto", "baseline", "kernel")
+
+#: names the JAX package accepts that this package does not, with the reason
+_NOT_PORTED = {
+    "pallas": "'pallas' is the JAX package's TPU kernel; its counterpart here "
+    "is window_kernel='kernel' (the hand-written Hopper kernel)",
+    "fast": "'fast' (encode_haplotype_windows_fast) restructures the encode "
+    "for TPU gather cost and is not ported; use window_kernel='kernel' (the "
+    "Hopper kernel) or 'baseline' (the plain PyTorch version)",
+}
+
+
+@dataclass(frozen=True)
+class SamplerConfig:
+    """On-device haplotype window sampler configuration."""
+
+    seq_length: int = DEFAULT_SEQ_LENGTH
+    batch_size: int = 1
+    seed: int = 42
+    #: cap on variants applied per window; windows with more in-window SNPs
+    #: apply the first ``max_variants_per_window`` and report the rest as
+    #: overflow
+    max_variants_per_window: int = 128
+    #: window encode: "kernel" (the Hopper kernel), "baseline" (the plain
+    #: PyTorch version), or "auto" — the kernel on a CUDA device, the
+    #: baseline on the CPU
+    window_kernel: str = "auto"
+
+    def __post_init__(self):
+        if self.window_kernel in _NOT_PORTED:
+            raise ValueError(_NOT_PORTED[self.window_kernel])
+        if self.window_kernel not in WINDOW_KERNELS:
+            raise ValueError(
+                f"unknown window_kernel {self.window_kernel!r}; "
+                f"expected one of {WINDOW_KERNELS}"
+            )
+
+    def resolved_kernel(self, device: torch.device) -> str:
+        """The implementation ``window_kernel`` selects on ``device``."""
+        if self.window_kernel == "auto":
+            return "kernel" if device.type == "cuda" else "baseline"
+        return self.window_kernel
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on.  Asking for CUDA on a machine
+    without a usable card raises: nothing carries on quietly on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or 'cpu'")
+    return dev

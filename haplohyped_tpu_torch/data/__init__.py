@@ -1,0 +1,1 @@
+"""data layer of haplohyped_tpu_torch."""

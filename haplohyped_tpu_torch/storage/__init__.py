@@ -1,0 +1,1 @@
+"""storage layer of haplohyped_tpu_torch."""

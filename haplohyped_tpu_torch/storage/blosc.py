@@ -1,0 +1,104 @@
+"""Blosc HDF5 filter (id 32001), built and registered at first need.
+
+The filter is the repository's own C source, ``cpp/blosc_h5_filter.c``,
+linked against the system c-blosc (``libblosc.so.1``).  This package compiles
+it into its own git-ignored build directory the first time a dataset needs
+it, then registers it with the libhdf5 that h5py loaded (``H5Zregister``).
+Gzip and uncompressed datasets never need it.  A dataset that does need it,
+on a machine where the plugin cannot be built or registered, raises an error
+that says so.  h5py is imported only where a file is read, so the package
+imports on a machine without it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import threading
+
+from haplohyped_tpu_torch.core.constants import BLOSC_FILTER_ID
+from haplohyped_tpu_torch.ops._build import PACKAGE_DIR, build_shared_library
+
+#: the plugin's C source, in the repository's ``cpp/`` directory
+PLUGIN_SOURCE = PACKAGE_DIR.parent / "cpp" / "blosc_h5_filter.c"
+
+_lock = threading.Lock()
+_plugin_handle = None  # keeps the dlopen handle alive
+
+
+def _find_libhdf5() -> str:
+    """The libhdf5 shared object h5py bundles (or a system one)."""
+    import h5py
+
+    h5py_dir = os.path.dirname(h5py.__file__)
+    for pattern in (
+        os.path.join(os.path.dirname(h5py_dir), "h5py.libs", "libhdf5-*.so*"),
+        os.path.join(h5py_dir, ".libs", "libhdf5-*.so*"),
+    ):
+        hits = [h for h in sorted(glob.glob(pattern)) if "hl" not in os.path.basename(h)]
+        if hits:
+            return hits[0]
+    for cand in ("libhdf5.so", "libhdf5.so.310", "libhdf5.so.200"):
+        try:
+            ctypes.CDLL(cand)
+            return cand
+        except OSError:
+            continue
+    raise RuntimeError("could not locate the libhdf5 that h5py uses")
+
+
+def register_blosc_filter() -> None:
+    """Make filter 32001 available to h5py in this process.
+
+    Idempotent and thread-safe.  Raises ``RuntimeError`` if the plugin cannot
+    be built or registered."""
+    global _plugin_handle
+    import h5py
+
+    with _lock:
+        if h5py.h5z.filter_avail(BLOSC_FILTER_ID):
+            return
+        if not PLUGIN_SOURCE.exists():
+            raise RuntimeError(
+                f"Blosc filter {BLOSC_FILTER_ID} needed but its source "
+                f"{PLUGIN_SOURCE} is missing"
+            )
+        try:
+            path = build_shared_library(
+                "hh_blosc_h5", [PLUGIN_SOURCE], "cc",
+                ("-O3", "-fPIC", "-shared"), ("-l:libblosc.so.1",),
+            )
+        except (OSError, RuntimeError) as exc:
+            raise RuntimeError(
+                f"Blosc filter {BLOSC_FILTER_ID} needed but its plugin could "
+                f"not be built from {PLUGIN_SOURCE} (needs a C compiler and "
+                f"libblosc.so.1): {exc}"
+            ) from exc
+        # promote libhdf5's symbols to the global namespace so the plugin's
+        # undefined H5P*/H5T* references resolve when it is loaded
+        libhdf5 = ctypes.CDLL(_find_libhdf5(), mode=ctypes.RTLD_GLOBAL)
+        _plugin_handle = ctypes.CDLL(str(path), mode=ctypes.RTLD_GLOBAL)
+        _plugin_handle.H5PLget_plugin_info.restype = ctypes.c_void_p
+        libhdf5.H5Zregister.argtypes = [ctypes.c_void_p]
+        libhdf5.H5Zregister.restype = ctypes.c_int
+        if libhdf5.H5Zregister(_plugin_handle.H5PLget_plugin_info()) < 0:
+            raise RuntimeError(f"H5Zregister of Blosc filter {BLOSC_FILTER_ID} failed")
+        if not h5py.h5z.filter_avail(BLOSC_FILTER_ID):
+            raise RuntimeError(f"Blosc filter {BLOSC_FILTER_ID} not available after registration")
+
+
+def needs_blosc(dataset) -> bool:
+    """Whether reading ``dataset`` goes through filter 32001."""
+    plist = dataset.id.get_create_plist()
+    return any(
+        plist.get_filter(i)[0] == BLOSC_FILTER_ID for i in range(plist.get_nfilters())
+    )
+
+
+def read_dataset(dataset, selection=()):
+    """Read ``dataset[selection]``, registering the Blosc filter first when
+    the dataset needs it."""
+    if needs_blosc(dataset):
+        register_blosc_filter()
+    return dataset[selection]

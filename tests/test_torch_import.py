@@ -1,0 +1,85 @@
+"""The PyTorch port stands alone: no JAX, nothing of ``haplohyped_tpu``.
+
+Imports are checked in a subprocess, because this test session imports JAX
+in-process (``tests/conftest.py``).  The sources of the port and of
+``chip_smoke.py`` are also scanned for such imports.
+"""
+
+import ast
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "haplohyped_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "haplohyped_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_importing_every_module_leaves_jax_out():
+    code = textwrap.dedent("""
+        import importlib, json, pkgutil, sys
+        import haplohyped_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        print(json.dumps({"imported": names, "modules": sorted(sys.modules)}))
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.splitlines()[-1])
+    assert "haplohyped_tpu_torch.data.sampler" in res["imported"]
+    assert "haplohyped_tpu_torch.ops.window_kernel" in res["imported"]
+    bad = [m for m in res["modules"] if _forbidden(m)]
+    assert bad == []
+
+
+def _sources():
+    # the git-ignored build directory holds outputs, not sources
+    files = sorted(
+        p for p in PORT.rglob("*.py") if "_build" not in p.relative_to(PORT).parts
+    ) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """Without CUDA the smoke script exits non-zero and prints no result;
+    alone in a directory (without the package) it fails too."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    for cwd in (ROOT, tmp_path):
+        out = subprocess.run(
+            [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+            text=True, timeout=120, env=os.environ | {"PYTHONPATH": ""},
+        )
+        assert out.returncode != 0, cwd
+        assert '"ok"' not in out.stdout, cwd
