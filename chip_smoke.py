@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. Build every CUDA kernel of ``haplohyped_tpu_torch/csrc`` (one ``nvcc``
-   each, started together) and print the card's name and power limit.
+   each) and the native VCF framer from ``cpp/`` (one ``g++``), all started
+   together, and print the card's name and power limit.
 2. Make a deployment-sized state on the device from ``--seed``: the GRCh38
    autosomes chr1-chr12 at their true lengths (random codes), 128 donors with
    SNVs at ~1.2 per kb per chromosome, and 100,000 BED regions of 200-2,000 bp.
@@ -27,6 +28,28 @@ Phases (any failure exits non-zero; nothing is caught):
    busy time from ``torch.profiler``; the kernel also back to back behind a
    sleep kernel with CUDA events), the kernel's bound, ``sample_many`` windows/s and ``sample()``
    ms (host clock), and a ``torch.profiler`` trace of ``sample_many``.
+7. Converter input from ``--seed``, under the git-ignored build directory: a
+   BGZF chr1 cohort VCF of 6,468,094 records (1000 Genomes Phase 3 chr1)
+   over GRCh38 chr1's length, 8 samples, with SNVs, indels, multi-allelic
+   and non-ACGT ALTs, missing and unphased genotypes; and a small VCF with
+   300 contigs.
+8. The converter's main path: ``VCFtoHDF5Converter(single_pass=False,
+   device="cuda").parse_snps`` for every donor of the chr1 file (12-byte
+   frames, decode12 kernel) and, without a region, for one donor of the
+   300-contig file (64-byte frames, decode64 kernel), with both kernels'
+   launch counts set to 0 just before and read just after.  Each SNP struct
+   must be byte-equal to the same task with ``device_decode=False`` (numpy
+   decode of 64-byte frames); each kernel output, on the same frames, to
+   the plain version.  Where h5py is installed, ``run()`` both ways and the
+   files compared.
+9. Edge fixtures, decode kernels against plain, bit-equal: N in {1, 1023,
+   1025, 4097} and the full chr1 frame, the hand-made records of
+   ``DECODE_EDGE_VCF``, and 1 M frames of random bytes, each layout, with
+   and without a sample.
+10. Times on the card: each decode kernel and its plain version per chr1
+   frame (back to back behind a sleep kernel, CUDA events; the profiler's
+   reading beside), their bounds, the per-donor task split into framing,
+   h2d, kernel, d2h, unpack and struct assembly, and records/s.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -40,10 +63,13 @@ import importlib.util
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -60,15 +86,28 @@ from haplohyped_tpu_torch.core.constants import (
     SNP_STRUCT_DTYPE,
     cohort_group_path,
 )
+from haplohyped_tpu_torch.hostio.frame_format import REC12_SIZE, REC_SIZE
+from haplohyped_tpu_torch.hostio.vcf import VCFSource
 from haplohyped_tpu_torch.ops import _build
+from haplohyped_tpu_torch.ops.decode_kernel import (
+    decode_frames12_kernel,
+    decode_frames_kernel,
+)
 from haplohyped_tpu_torch.ops.haplotype_window import (
     HaplotypeWindows,
     encode_haplotype_windows,
+)
+from haplohyped_tpu_torch.ops.vcf_decode import (
+    decode_frames12_packed,
+    decode_frames_packed,
+    unpack12_columns,
 )
 from haplohyped_tpu_torch.ops.window_kernel import (
     build_window_index,
     encode_windows_kernel,
 )
+from haplohyped_tpu_torch.pipeline.records import snp_struct_from_frames12
+from haplohyped_tpu_torch.pipeline.vcf_to_h5 import VCFtoHDF5Converter
 
 #: GRCh38 primary-assembly lengths of chr1-chr12 (2,077,042,982 bp): the
 #: largest set of autosomes whose concatenation int32 ``offsets`` address
@@ -85,6 +124,44 @@ SEQ_LENGTH, BATCH, K_MAX = 1000, 64, 128
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
+
+#: hand-made records for the decode kernels' edge cases: POS 1 and 0 (start
+#: wraps to 0xFFFFFFFF), genotypes missing in either allele or both, haploid
+#: and triploid genotypes, an 11-digit
+#: POS, 10-digit POS past uint32, lowercase, '*', symbolic and multi-allelic
+#: ALTs, indels, non-digit alleles (the 0xB GT nibble), a non-digit POS, GT
+#: as a later FORMAT subfield, no GT, and lines of 8 and 6 fields
+DECODE_EDGE_VCF = "\n".join("\t".join(r.split()) for r in """\
+##fileformat=VCFv4.2
+##contig=<ID=chr1,length=248956422>
+##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">
+##FORMAT=<ID=DP,Number=1,Type=Integer,Description="Depth">
+#CHROM POS ID REF ALT QUAL FILTER INFO FORMAT s1 s2
+chr1 1 . A G . PASS . GT 0|1 1|1
+chr1 0 . A G . PASS . GT 1|0 0|1
+chr1 200 . C T . PASS . GT ./. .|1
+chr1 250 . C T . PASS . GT 1|. 0/.
+chr1 300 . G A . PASS . GT 1 0
+chr1 12345678901 . A C . PASS . GT 0|1 1|0
+chr1 4294967296 . A C . PASS . GT 1|1 0|0
+chr1 9999999999 . T G . PASS . GT 0/1 1/0
+chr1 500 . a g . PASS . GT 0|1 1|1
+chr1 600 . A * . PASS . GT 0|1 1|1
+chr1 700 . A <DEL> . PASS . GT 1|1 0|1
+chr1 800 . C T . PASS . GT A|1 1/x
+chr1 900 . G C . PASS . GT 0|1|1 2/3
+chr1 1000 . T A,C . PASS . GT 1|2 0/0
+chr1 1100 . GT G . PASS . GT 0|1 1|0
+chr1 1200 . A AT . PASS . GT 0|1 0/1
+chr1 12a4 . A C . PASS . GT 0|1 0|1
+chr1 1300 . A C . PASS . GT:DP 0|1:3 1|1:4
+chr1 1400 . A C . PASS . DP:GT 3:0|1 4:.|.
+chr1 1500 . A C . PASS . DP 3 4
+chr1 1600 . A C . PASS .
+chr1 1700 . A C . PASS
+chr1 1800 . N A . PASS . GT 0|1 1|0
+chr1 1900 . A c . PASS . GT 0|1 1|0
+""".splitlines()) + "\n"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -350,10 +427,10 @@ def _sleep_cycles_per_ms() -> float:
     return 20_000_000 / a.elapsed_time(b)
 
 
-def profiled_ms(fn, args_list) -> float:
+def profiler_device_ms(fn, args_list) -> float | None:
     """Device busy time per call of ``fn`` over ``args_list``: the sum of the
     durations of every device op ``torch.profiler`` (CUPTI) records, over the
-    number of calls."""
+    number of calls; ``None`` where it recorded fewer device ops than calls."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -362,8 +439,16 @@ def profiled_ms(fn, args_list) -> float:
             fn(*args)
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(len(dev) >= len(args_list), "the profiler recorded no device ops")
+    if len(dev) < len(args_list):
+        return None
     return sum(e.time_range.elapsed_us() for e in dev) / len(args_list) / 1e3
+
+
+def profiled_ms(fn, args_list) -> float:
+    """:func:`profiler_device_ms`, failing where the profiler recorded nothing."""
+    ms = profiler_device_ms(fn, args_list)
+    check(ms is not None, "the profiler recorded no device ops")
+    return ms
 
 
 def device_ms(fn, args_list):
@@ -443,6 +528,362 @@ def bound_ms(batches, outs, L, K, V):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: converter input, made from --seed
+# ---------------------------------------------------------------------------
+
+#: GRCh38 chr1 length, and the record count of chr1 in the 1000 Genomes
+#: Phase 3 release (ALL.chr1.phase3_shapeit2_mvncall_integrated_v5a)
+CHR1_LENGTH = 248_956_422
+CHR1_RECORDS = 6_468_094
+N_VCF_SAMPLES = 8
+#: record kinds of the cohort VCF and their shares
+RECORD_SHARES = {"biallelic SNV": 0.88, "indel": 0.07, "multi-allelic SNV": 0.03,
+                 "non-ACGT ALT (*, N, <DEL>)": 0.02}
+#: genotypes of the cohort VCF and their shares, per sample and record
+GT_SHARES = {"0|0": 0.55, "0|1": 0.15, "1|0": 0.15, "1|1": 0.08, "0/1": 0.03,
+             "1/1": 0.01, "./.": 0.02, "1|2": 0.01}
+#: the small VCF whose framing without a region takes the 64-byte route
+N_CONTIGS, RECORDS_PER_CONTIG = 300, 1000
+
+BGZF_PAYLOAD = 0xFF00
+BGZF_EOF = (b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff\x06\x00BC\x02\x00\x1b\x00"
+            b"\x03\x00\x00\x00\x00\x00\x00\x00\x00\x00")
+
+
+def _bgzf_block(chunk) -> bytes:
+    co = zlib.compressobj(1, zlib.DEFLATED, -15)
+    comp = co.compress(chunk) + co.flush()
+    check(len(comp) + 26 <= 0x10000, "BGZF block too large")
+    header = (b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff\x06\x00BC\x02\x00"
+              + struct.pack("<H", len(comp) + 25))
+    return header + comp + struct.pack("<II", zlib.crc32(chunk), len(chunk))
+
+
+def write_bgzf(path: str, header: bytes, body: np.ndarray) -> None:
+    """``header`` + ``body`` as BGZF blocks, compressed on every core."""
+    view = memoryview(body)
+    chunks = [header] + [view[i:i + BGZF_PAYLOAD] for i in range(0, len(view), BGZF_PAYLOAD)]
+    with ThreadPoolExecutor(os.cpu_count()) as ex, open(path, "wb") as f:
+        for block in ex.map(_bgzf_block, chunks):
+            f.write(block)
+        f.write(BGZF_EOF)
+
+
+def _scatter(buf, at, mat, lens) -> None:
+    """``buf[at[i] + j] = mat[i, j]`` for ``j < lens[i]``."""
+    for j in range(mat.shape[1]):
+        m = lens > j
+        buf[at[m] + j] = mat[m, j]
+
+
+def vcf_body(chrom_id, chroms, pos, ref, ref_len, alt, alt_len, gt_idx) -> np.ndarray:
+    """The data lines of a VCF as one uint8 array, assembled with vector ops:
+    ``CHROM POS . REF ALT . PASS . GT g1 .. gS``."""
+    n, S = gt_idx.shape
+    cw = max(map(len, chroms))
+    cmat = np.array([np.frombuffer(c.ljust(cw, b"\0"), np.uint8) for c in chroms])
+    clen = np.array([len(c) for c in chroms])[chrom_id]
+    nd = 1 + sum((pos >= 10**k).astype(np.int64) for k in range(1, 10))
+    fixed = np.frombuffer(b"\t.\tPASS\t.\tGT", np.uint8)
+    length = clen + 1 + nd + 3 + ref_len + 1 + alt_len + fixed.size + 4 * S + 1
+    at = np.cumsum(length) - length
+    buf = np.empty(int(length.sum()), np.uint8)
+    _scatter(buf, at, cmat[chrom_id], clen)
+    at += clen
+    buf[at] = ord("\t")
+    at += 1
+    exp = np.maximum(nd[:, None] - 1 - np.arange(10), 0)
+    _scatter(buf, at, (pos[:, None] // 10**exp % 10 + ord("0")).astype(np.uint8), nd)
+    at += nd
+    for c in b"\t.\t":
+        buf[at] = c
+        at += 1
+    _scatter(buf, at, ref, ref_len)
+    at += ref_len
+    buf[at] = ord("\t")
+    at += 1
+    _scatter(buf, at, alt, alt_len)
+    at += alt_len
+    for c in fixed:
+        buf[at] = c
+        at += 1
+    gts = np.frombuffer("".join(GT_SHARES).encode(), np.uint8).reshape(-1, 3)
+    for s in range(S):
+        buf[at] = ord("\t")
+        for j in range(3):
+            buf[at + 1 + j] = gts[gt_idx[:, s], j]
+        at += 4
+    buf[at] = ord("\n")
+    return buf
+
+
+def write_cohort_vcf(path: str, contigs: dict, n: int, samples: list, seed: int) -> dict:
+    """A BGZF cohort VCF of ``n`` records spread over ``contigs`` ({name:
+    length}) in proportion to length, sorted, with the record kinds of
+    ``RECORD_SHARES`` and the genotypes of ``GT_SHARES``.  Returns the
+    count of each record kind."""
+    rng = np.random.default_rng(seed)
+    names = list(contigs)
+    lengths = np.array(list(contigs.values()), np.int64)
+    chrom_id = rng.choice(len(names), n, p=lengths / lengths.sum())
+    pos = (rng.random(n) * lengths[chrom_id]).astype(np.int64) + 1
+    order = np.lexsort((pos, chrom_id))
+    chrom_id, pos = chrom_id[order], pos[order]
+
+    kind = rng.choice(len(RECORD_SHARES), n, p=list(RECORD_SHARES.values()))
+    base, shift = rng.integers(0, 4, n), rng.integers(1, 4, n)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    ref, alt = np.zeros((n, 3), np.uint8), np.zeros((n, 5), np.uint8)
+    ref_len, alt_len = np.ones(n, np.int64), np.ones(n, np.int64)
+    ref[:, 0], alt[:, 0] = acgt[base], acgt[(base + shift) % 4]
+    # indels: a deletion (REF of 2-3 bases) or an insertion (ALT of 2-3 bases)
+    extra, deletion = rng.integers(1, 3, n), rng.random(n) < 0.5
+    for rows, mat, lens in (((kind == 1) & deletion, ref, ref_len),
+                            ((kind == 1) & ~deletion, alt, alt_len)):
+        alt[rows, 0] = ref[rows, 0]
+        mat[rows, 1] = acgt[(base[rows] + 1) % 4]
+        mat[rows, 2] = acgt[(base[rows] + 2) % 4]
+        lens[rows] = 1 + extra[rows]
+    # multi-allelic SNVs: ALT "X,Y" with X, Y and REF distinct
+    m = kind == 2
+    alt[m, 1] = ord(",")
+    alt[m, 2] = acgt[(base[m] + shift[m] % 3 + 1) % 4]
+    alt_len[m] = 3
+    # non-ACGT ALTs
+    which = rng.integers(0, 3, n)
+    alt[(kind == 3) & (which == 0), 0] = ord("*")
+    alt[(kind == 3) & (which == 1), 0] = ord("N")
+    dl = (kind == 3) & (which == 2)
+    alt[dl] = np.frombuffer(b"<DEL>", np.uint8)
+    alt_len[dl] = 5
+
+    gt_idx = rng.choice(len(GT_SHARES), (n, len(samples)), p=list(GT_SHARES.values()))
+    header = "".join(
+        ["##fileformat=VCFv4.2\n"]
+        + [f"##contig=<ID={c},length={ln}>\n" for c, ln in contigs.items()]
+        + ['##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">\n',
+           "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t" + "\t".join(samples) + "\n"]
+    ).encode()
+    body = vcf_body(chrom_id, [c.encode() for c in names], pos, ref, ref_len, alt, alt_len,
+                    gt_idx)
+    write_bgzf(path, header, body)
+    return {k: int((kind == i).sum()) for i, k in enumerate(RECORD_SHARES)}
+
+
+def make_converter_input(dirname: str, seed: int, n_records: int = CHR1_RECORDS):
+    """The chr1 cohort VCF (``chr1.filtered.vcf.gz``), its sample list, and
+    the 300-contig VCF.  Returns ``(samples, samples_path, ctg_path)``."""
+    samples = [f"donor{d}" for d in range(N_VCF_SAMPLES)]
+    samples_path = os.path.join(dirname, "samples.txt")
+    with open(samples_path, "w") as f:
+        f.write("\n".join(samples) + "\n")
+    t0 = time.perf_counter()
+    kinds = write_cohort_vcf(os.path.join(dirname, "chr1.filtered.vcf.gz"),
+                             {"chr1": CHR1_LENGTH}, n_records, samples, seed)
+    ctg_path = os.path.join(dirname, "ctg300.vcf.gz")
+    write_cohort_vcf(ctg_path, {f"ctg{i:03d}": 1_000_000 for i in range(N_CONTIGS)},
+                     N_CONTIGS * RECORDS_PER_CONTIG, samples, seed + 1)
+    size = os.path.getsize(os.path.join(dirname, "chr1.filtered.vcf.gz"))
+    log(f"converter input: chr1 cohort VCF, {n_records:,} records over {CHR1_LENGTH:,} bp, "
+        f"{len(samples)} samples, {size / 1e6:.1f} MB BGZF; records by kind {kinds}; "
+        f"genotype shares {GT_SHARES}; and {N_CONTIGS} contigs x {RECORDS_PER_CONTIG:,} "
+        f"records; written in {time.perf_counter() - t0:.1f} s")
+    return samples, samples_path, ctg_path
+
+
+# ---------------------------------------------------------------------------
+# phases 8-10: the converter's main path, decode edge fixtures, times
+# ---------------------------------------------------------------------------
+
+class DecodeComparisons:
+    """Runs a decode kernel and its plain version on the same frames and
+    requires every int32 column bit-equal."""
+
+    def __init__(self):
+        self.max_abs_err = {"vcf_decode12": 0, "vcf_decode64": 0}
+        self.count = 0
+
+    def _check(self, name, got, want, what):
+        torch.cuda.synchronize()  # a fault in the kernel surfaces here
+        check(len(got) == len(want), f"{what}: column count")
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(g.shape == w.shape and g.dtype == w.dtype == torch.int32,
+                  f"{what}: column {i} shape/dtype")
+            err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
+            self.max_abs_err[name] = max(self.max_abs_err[name], err)
+            check(err == 0, f"{what}: column {i} differs from the plain version (max |d| {err})")
+        self.count += 1
+
+    def decode12(self, frames, with_sample, what):
+        self._check("vcf_decode12", decode_frames12_kernel(frames, with_sample),
+                    decode_frames12_packed(frames, with_sample), f"decode12 {what}")
+
+    def decode64(self, frames, with_sample, what):
+        self._check("vcf_decode64", decode_frames_kernel(frames, with_sample),
+                    decode_frames_packed(frames, with_sample), f"decode64 {what}")
+
+
+def _compare_files(a: str, b: str) -> int:
+    import h5py
+
+    with h5py.File(a, "r") as fa, h5py.File(b, "r") as fb:
+        names = []
+        fa.visititems(lambda n, o: names.append(n) if isinstance(o, h5py.Dataset) else None)
+        other = []
+        fb.visititems(lambda n, o: other.append(n) if isinstance(o, h5py.Dataset) else None)
+        check(sorted(names) == sorted(other) and names, "run(): dataset names")
+        for n in names:
+            check(fa[n][()].tobytes() == fb[n][()].tobytes(), f"run(): {n} differs")
+    return len(names)
+
+
+def converter_main_path(tmp: str, seed: int, dev, dec: DecodeComparisons,
+                        n_records: int = CHR1_RECORDS) -> dict:
+    """Phases 7 and 8.  Returns what the later phases use: the launch counts,
+    the per-donor task seconds, the record count and paths."""
+    samples, samples_path, ctg_path = make_converter_input(tmp, seed, n_records)
+    threads = os.cpu_count()
+    kw = dict(cores=1, cxx_threads=threads, chromosomes=[1], single_pass=False, device=dev)
+    conv = VCFtoHDF5Converter("smoke", tmp, os.path.join(tmp, "out_kernel"), samples_path, **kw)
+    host = VCFtoHDF5Converter("smoke", tmp, os.path.join(tmp, "out_host"), samples_path,
+                              device_decode=False, **kw)
+    chr1 = conv.config.vcf_path(1)
+
+    decode_frames12_kernel.launches = 0
+    decode_frames_kernel.launches = 0
+    got, task_s = {}, {}
+    for donor in samples:
+        t0 = time.perf_counter()
+        got[donor] = conv.parse_snps(chr1, donor, "chr1")
+        task_s[donor] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_ctg = conv.parse_snps(ctg_path, samples[0], None)
+    ctg_s = time.perf_counter() - t0
+    launches = {"vcf_decode12": decode_frames12_kernel.launches,
+                "vcf_decode64": decode_frames_kernel.launches}
+    log(f"converter main path: parse_snps for {len(samples)} donors of chr1 "
+        f"({sum(task_s.values()):.2f} s) and one donor of the {N_CONTIGS}-contig file without "
+        f"a region ({ctg_s:.2f} s); kernel launches {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"the converter's main path never launched {name}")
+
+    # the same tasks with device_decode=False: 64-byte frames, numpy decode
+    for donor in samples:
+        want = host.parse_snps(chr1, donor, "chr1")
+        (s, n), (ws, wn) = got[donor], want
+        check(n == wn == n_records, f"{donor}: records seen {n} {wn}")
+        check(s.dtype == ws.dtype == SNP_STRUCT_DTYPE and s.tobytes() == ws.tobytes(),
+              f"{donor}: SNP struct differs from the device_decode=False task")
+        check(0.8 * n_records < len(s) < n_records, f"{donor}: {len(s)} SNPs")
+        check(bool((s["chrom"] == b"chr1").all()) and bool((np.diff(s["start"]) >= 0).all()),
+              f"{donor}: chrom and sorted starts")
+    want = host.parse_snps(ctg_path, samples[0], None)
+    check(got_ctg[0].tobytes() == want[0].tobytes() and got_ctg[1] == want[1],
+          f"{N_CONTIGS}-contig SNP struct differs from the device_decode=False task")
+    log(f"converter checks: {len(samples)} chr1 SNP structs ({len(got[samples[0]][0]):,} SNPs "
+        f"for {samples[0]}) and the {N_CONTIGS}-contig struct ({len(got_ctg[0]):,} SNPs) "
+        "byte-equal to the device_decode=False tasks")
+
+    # each kernel against its plain version on the frames the main path decoded
+    for donor in samples:
+        f12 = VCFSource(chr1, threads).frame12(donor, "chr1")[0]
+        dec.decode12(torch.from_numpy(f12).to(dev), True, f"chr1 {donor}")
+    f64 = VCFSource(ctg_path, threads).frame(samples[0]).records
+    dec.decode64(torch.from_numpy(f64).to(dev), True, f"{N_CONTIGS} contigs")
+
+    if importlib.util.find_spec("h5py") is None:
+        log("converter run(): not run: h5py is not installed "
+            "(tests/test_torch_convert.py holds run() against the JAX package)")
+    else:
+        conv.run()
+        host.run()
+        n = _compare_files(conv.config.final_h5_path, host.config.final_h5_path)
+        log(f"converter run(): {n} datasets byte-equal to the device_decode=False run")
+    return {"launches": launches, "task_s": task_s, "chr1": chr1, "samples": samples,
+            "threads": threads, "n_records": n_records}
+
+
+def decode_edge_fixtures(tmp: str, seed: int, dev, dec: DecodeComparisons, f12, f64) -> None:
+    """Phase 9 (``f12``/``f64``: one donor's chr1 frames on the device)."""
+    path = os.path.join(tmp, "decode_edge.vcf")
+    with open(path, "w") as f:
+        f.write(DECODE_EDGE_VCF)
+    src = VCFSource(path)
+    edge = [(s, src.frame12(s)[0], src.frame(s).records) for s in ("s1", "s2")]
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    r12, r64 = (torch.randint(0, 256, (1 << 20, w), dtype=torch.uint8, device=dev, generator=g)
+                for w in (REC12_SIZE, REC_SIZE))
+    for ws in (True, False):
+        for n in (1, 1023, 1025, 4097):
+            dec.decode12(f12[:n], ws, f"N={n} with_sample={ws}")
+            dec.decode64(f64[:n], ws, f"N={n} with_sample={ws}")
+        dec.decode12(f12, ws, f"full chr1 frame with_sample={ws}")
+        dec.decode64(f64, ws, f"full chr1 frame with_sample={ws}")
+        for s, e12, e64 in edge:
+            dec.decode12(torch.from_numpy(e12).to(dev), ws, f"DECODE_EDGE_VCF {s}")
+            dec.decode64(torch.from_numpy(e64).to(dev), ws, f"DECODE_EDGE_VCF {s}")
+        dec.decode12(r12, ws, f"1 M random frames with_sample={ws}")
+        dec.decode64(r64, ws, f"1 M random frames with_sample={ws}")
+    log(f"decode edge fixtures: {dec.count} kernel/plain comparisons bit-equal so far")
+
+
+def task_split(chr1: str, donor: str, dev, threads: int) -> list[float]:
+    """The per-donor task's stages in seconds, each ended by a synchronise:
+    framing, h2d, kernel, d2h, unpack, struct assembly."""
+    t = [time.perf_counter()]
+    rec, table, _ = VCFSource(chr1, threads).frame12(donor, "chr1")
+    t.append(time.perf_counter())
+    x = torch.from_numpy(rec).to(dev)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    out = decode_frames12_kernel(x)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    cols = [c.cpu().numpy() for c in out]
+    t.append(time.perf_counter())
+    decoded = unpack12_columns(*cols)
+    t.append(time.perf_counter())
+    snp_struct_from_frames12(decoded, table)
+    t.append(time.perf_counter())
+    return list(np.diff(t))
+
+
+def decode_times(card: str, ctx: dict, f12, f64) -> dict:
+    """Phase 10.  Returns ``{kernel: (ms, plain_ms, bound_ms)}``: the device
+    time per call of the kernel and of its plain version on one donor's chr1
+    frame, back to back behind a sleep kernel (CUDA events: a profiler
+    session this late in the script has recorded no device ops on the card,
+    so its reading is only printed beside), and the bound: each input byte
+    read once and each int32 output written once, over 3.35 TB/s."""
+    n = ctx["n_records"]
+    out = {
+        "vcf_decode12": (device_ms(decode_frames12_kernel, [(f12,)] * 20)[0],
+                         device_ms(decode_frames12_packed, [(f12,)] * 3)[0],
+                         n * (REC12_SIZE + 3 * 4) / HBM_BYTES_PER_S * 1e3),
+        "vcf_decode64": (device_ms(decode_frames_kernel, [(f64,)] * 10)[0],
+                         device_ms(decode_frames_packed, [(f64,)] * 2)[0],
+                         n * (REC_SIZE + 7 * 4) / HBM_BYTES_PER_S * 1e3),
+    }
+    for (name, (ms, plain, bound)), fn, x in zip(
+            out.items(), (decode_frames12_kernel, decode_frames_kernel), (f12, f64)):
+        prof = profiler_device_ms(fn, [(x,)] * 10)
+        prof = "no device ops recorded" if prof is None else f"{prof:.5f} ms"
+        log(f"[{card}] {name} on one donor's chr1 frame ({n:,} records): {ms:.5f} ms a call "
+            f"back to back (CUDA events; profiler: {prof}), plain version {plain:.5f} ms, "
+            f"bound {bound:.5f} ms (bytes, 3.35 TB/s)")
+    stages = ("framing", "h2d", "kernel", "d2h", "unpack", "struct")
+    for donor in ctx["samples"][:3]:
+        split = task_split(ctx["chr1"], donor, f12.device, ctx["threads"])
+        log(f"[{card}] per-donor task split {donor} (s): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in zip(stages, split)))
+    rates = [n / s for s in ctx["task_s"].values()]
+    log(f"[{card}] parse_snps (frame + decode + struct) records/s over "
+        f"{len(rates)} donors (host clock): median {np.median(rates):,.0f}, "
+        f"min {min(rates):,.0f}, max {max(rates):,.0f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -477,8 +918,9 @@ def main() -> int:
         f"cohort D={D} C={C} V={V:,} ({int(cohort.counts.sum()):,} SNVs); "
         f"{len(regions):,} regions; made in {time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the device")
-    log("reduced: none (full GRCh38 chr1-chr12 lengths, 128 donors, "
-        "100,000 regions, L=1000, B=64, K=128)")
+    log("reduced: sampler none (full GRCh38 chr1-chr12 lengths, 128 donors, "
+        "100,000 regions, L=1000, B=64, K=128); converter 8 samples instead of the "
+        "2,504 of 1000 Genomes Phase 3 (records and chr1 length in full)")
 
     # -- 3. main path -------------------------------------------------------
     cfg = SamplerConfig(seq_length=SEQ_LENGTH, batch_size=BATCH)
@@ -599,6 +1041,18 @@ def main() -> int:
         f"device busy (profiler), {host_plain:.5f} ms/call host time")
     log(f"[{card}] " + trace_sample_many(sampler, 10))
 
+    # -- 7-10. the converter -------------------------------------------------
+    dec = DecodeComparisons()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        ctx = converter_main_path(tmp, args.seed, dev, dec)
+        src, donor = VCFSource(ctx["chr1"], ctx["threads"]), ctx["samples"][0]
+        f12 = torch.from_numpy(src.frame12(donor, "chr1")[0]).to(dev)
+        f64 = torch.from_numpy(src.frame(donor, "chr1").records).to(dev)
+        decode_edge_fixtures(tmp, args.seed, dev, dec, f12, f64)
+        times = decode_times(card, ctx, f12, f64)
+        del f12, f64
+
     kernels = [{
         "name": "window_kernel",
         "route": "cuda",
@@ -612,6 +1066,21 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
     }]
+    for name, line in (("vcf_decode12", 151), ("vcf_decode64", 70)):
+        ms, plain_ms, bound = times[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "haplohyped_tpu_torch/csrc/vcf_decode.cu",
+            "replaces": f"haplohyped_tpu/ops/pallas_decode.py:{line}",
+            "launches": ctx["launches"][name],
+            "max_abs_err": dec.max_abs_err[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes",
+            "library_ms": None,
+        })
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

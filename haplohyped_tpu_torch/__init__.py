@@ -1,11 +1,13 @@
 """haplohyped_tpu_torch — the PyTorch/CUDA port of haplohyped_tpu for one
 NVIDIA H100.
 
-This slice holds the training-time data path: cohort and reference HDF5 to
-device tensors, the variant-aware haplotype window encode (a hand-written
-Hopper kernel beside its plain PyTorch version) and the on-device sampler.
-It imports torch and numpy (h5py only where an HDF5 file is read), and
-nothing of JAX or ``haplohyped_tpu``.
+It holds the training-time data path (cohort and reference HDF5 to device
+tensors, the variant-aware haplotype window encode on a hand-written Hopper
+kernel beside its plain PyTorch version, and the on-device sampler) and the
+VCF -> cohort-HDF5 converter's per-donor path
+(``pipeline.vcf_to_h5.VCFtoHDF5Converter``, its record decode on two more
+Hopper kernels).  It imports torch and numpy (h5py and libblosc only where
+an HDF5 file is read or written), and nothing of JAX or ``haplohyped_tpu``.
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.
 """

@@ -1,12 +1,18 @@
-"""Sampler configuration and device resolution."""
+"""Sampler and converter configuration, and device resolution."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import os
+from dataclasses import dataclass, field
 
 import torch
 
-from haplohyped_tpu_torch.core.constants import DEFAULT_SEQ_LENGTH
+from haplohyped_tpu_torch.core.constants import (
+    AUTOSOMES,
+    DEFAULT_SEQ_LENGTH,
+    VCF_FILENAME_PATTERN,
+)
 
 #: window-encode implementations the port has
 WINDOW_KERNELS = ("auto", "baseline", "kernel")
@@ -51,6 +57,49 @@ class SamplerConfig:
         if self.window_kernel == "auto":
             return "kernel" if device.type == "cuda" else "baseline"
         return self.window_kernel
+
+
+@dataclass(frozen=True)
+class ConvertConfig:
+    """Configuration of the VCF -> cohort-HDF5 conversion (the JAX
+    package's ``ConvertConfig``, field for field)."""
+
+    cohort_name: str
+    vcf_dir: str
+    out_dir: str
+    sample_list_path: str
+    #: host worker threads fanning out over donors
+    cores: int = field(default_factory=lambda: os.cpu_count() or 1)
+    #: native decompression/framing threads per task
+    cxx_threads: int = 4
+    chromosomes: tuple[int, ...] = AUTOSOMES
+    vcf_pattern: str = VCF_FILENAME_PATTERN
+    #: skip (donor, chrom) shards whose temp artifact already exists
+    resume: bool = False
+    #: decode the framed records on the converter's device (the Hopper
+    #: kernels on CUDA, their plain versions on the CPU) instead of numpy
+    device_decode: bool = True
+    #: the raw-text tokenizer route; not ported (see ``ROADMAP.md``)
+    use_tokenizer: bool = False
+    #: frame each chromosome once for every donor; not ported yet (see
+    #: ``ROADMAP.md``): the port runs the per-donor path
+    single_pass: bool = True
+    #: stream datasets into the final file (single-pass only)
+    direct_write: bool = True
+
+    @property
+    def tmp_dir(self) -> str:
+        return os.path.join(self.out_dir, "tmp_files")
+
+    @property
+    def final_h5_path(self) -> str:
+        return os.path.join(self.out_dir, f"{self.cohort_name}.h5")
+
+    def vcf_path(self, chromosome: int | str) -> str:
+        return os.path.join(self.vcf_dir, self.vcf_pattern.format(chromosome=chromosome))
+
+    def replace(self, **kw) -> "ConvertConfig":
+        return dataclasses.replace(self, **kw)
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

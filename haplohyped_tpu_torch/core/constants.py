@@ -41,6 +41,17 @@ SNP_STRUCT_DTYPE = np.dtype(
 #: HDF5 filter id of Blosc.
 BLOSC_FILTER_ID: int = 32001
 
+#: cd_values of the cohort writer: (filter_version, blosc_version, typesize,
+#: chunksize, clevel, shuffle, compcode) -- clevel 5, byte shuffle, LZ4HC.
+#: The filter's ``set_local`` overwrites the first four at dataset creation.
+COHORT_COMPRESSION_OPTS: tuple[int, ...] = (2, 2, 0, 0, 5, 1, 2)
+
+#: Autosomes a conversion processes by default.
+AUTOSOMES: tuple[int, ...] = tuple(range(1, 23))
+
+#: Input VCF filename pattern: one file per chromosome, every sample inside.
+VCF_FILENAME_PATTERN: str = "chr{chromosome}.filtered.vcf.gz"
+
 #: Dataset holding SNP records inside a donor/chrom group.
 SNP_DATASET_NAME: str = "snp_data"
 

@@ -1,0 +1,162 @@
+"""VCF record source: the native framer, or the pure-Python one on request.
+
+The port's ``VCFSource`` (``haplohyped_tpu.hostio.vcf``) for the per-donor
+converter: sample names, contig names, and framing of one sample's records
+into the 64-byte or the 12-byte layout, optionally restricted to a region
+(``chrom`` or ``chrom:beg-end``).  The native framer is built from ``cpp/``
+at first use and a failed build raises; the pure-Python framer runs only
+when the caller passes ``use_native=False``.
+"""
+
+from __future__ import annotations
+
+import gzip
+
+import numpy as np
+
+from haplohyped_tpu_torch.hostio import native
+from haplohyped_tpu_torch.hostio.frame_format import (
+    REC_SIZE,
+    FramedRecords,
+    frames12_from_frames64,
+    pack_frame,
+)
+
+
+def _read_text(path: str) -> bytes:
+    """Decompress a VCF to raw text bytes."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    opener = gzip.open if head == b"\x1f\x8b" else open
+    with opener(path, "rb") as f:
+        return f.read()
+
+
+def _parse_region(region: str | None) -> tuple[str, int, int]:
+    if not region:
+        return "", -1, -1
+    if ":" in region and "-" in region.split(":")[-1]:
+        chrom, span = region.rsplit(":", 1)
+        b, e = span.split("-", 1)
+        return chrom, (int(b) - 1) if b else -1, int(e) if e else -1
+    return region, -1, -1
+
+
+def is_bcf(path: str) -> bool:
+    """True if the file is a BCF2, plain or BGZF-wrapped (its text, or its
+    first gzip member, starts with ``BCF\\x02``)."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head.startswith(b"\x1f\x8b"):
+        try:
+            with gzip.open(path, "rb") as f:
+                head = f.read(4)
+        except (OSError, EOFError):
+            return False
+    return head == b"BCF\x02"
+
+
+class VCFSource:
+    """One VCF file, framed on demand into fixed-shape record buffers."""
+
+    def __init__(self, path: str, threads: int = 1, use_native: bool = True):
+        self.path = path
+        self.threads = max(1, int(threads))
+        self.use_native = use_native
+
+    # -- header ---------------------------------------------------------
+
+    def samples(self) -> list[str]:
+        """Sample names from the ``#CHROM`` header line."""
+        if self.use_native:
+            return native.vcf_samples(self.path, self.threads)
+        for line in _read_text(self.path).split(b"\n"):
+            if line.startswith(b"#CHROM"):
+                return [f.decode() for f in line.rstrip(b"\r").split(b"\t")[9:]]
+            if not line.startswith(b"#"):
+                break
+        raise RuntimeError("VCF has no #CHROM header line")
+
+    def seqnames(self) -> list[str]:
+        """Contig names from the ``##contig`` header lines."""
+        out = []
+        for line in _read_text(self.path).split(b"\n"):
+            if not line.startswith(b"#"):
+                break
+            if line.startswith(b"##contig=<"):
+                body = line[len(b"##contig=<"):].rstrip(b"\r>")
+                out += [part[3:].decode() for part in body.split(b",")
+                        if part.startswith(b"ID=")]
+        return out
+
+    # -- framing --------------------------------------------------------
+
+    def frame(self, sample: str | None = None, region: str | None = None) -> FramedRecords:
+        """Frame data lines into (n, 64) uint8 records.
+
+        ``sample`` selects whose GT subfield is packed; ``region`` filters by
+        chromosome (optionally ``chrom:beg-end``, 1-based inclusive)."""
+        if self.use_native:
+            records, seen = native.vcf_frame(self.path, sample, region, self.threads)
+            return FramedRecords(records=records, total_seen=seen)
+        return self._py_frame(sample, region)
+
+    def frame12(
+        self, sample: str | None = None, region: str | None = None
+    ) -> tuple[np.ndarray, list[str], int]:
+        """Frame data lines into compact (n, 12) records + a chrom table.
+
+        Returns (records, chrom_table, total_seen).  Raises ``ValueError``
+        where the records ``region`` keeps hold > 255 distinct chroms (route
+        those through :meth:`frame`)."""
+        if self.use_native:
+            return native.vcf_frame12(self.path, sample, region, self.threads)
+        framed = self._py_frame(sample, region)
+        records, chroms = frames12_from_frames64(framed.records)
+        return records, chroms, framed.total_seen
+
+    def _py_frame(self, sample: str | None, region: str | None) -> FramedRecords:
+        text = _read_text(self.path)
+        chrom_f, beg, end = _parse_region(region)
+        chrom_b = chrom_f.encode()
+        sample_col = -1
+        recs: list[np.ndarray] = []
+        seen = 0
+        for line in text.split(b"\n"):
+            line = line.rstrip(b"\r")
+            if not line:
+                continue
+            if line.startswith(b"#"):
+                if line.startswith(b"#CHROM") and sample is not None:
+                    cols = line.split(b"\t")[9:]
+                    try:
+                        sample_col = cols.index(sample.encode())
+                    except ValueError:
+                        raise RuntimeError(f"sample not found in VCF header: {sample}")
+                continue
+            seen += 1
+            fields = line.split(b"\t")
+            if len(fields) < 8:
+                continue
+            if chrom_b and fields[0] != chrom_b:
+                continue
+            if beg >= 0 or end >= 0:
+                try:
+                    start0 = int(fields[1]) - 1
+                except ValueError:
+                    continue
+                if (beg >= 0 and start0 < beg) or (end >= 0 and start0 >= end):
+                    continue
+            gt = None
+            if sample is not None and sample_col >= 0 and len(fields) > 9 + sample_col:
+                fmt = fields[8].split(b":")
+                try:
+                    gt_idx = fmt.index(b"GT")
+                except ValueError:
+                    continue
+                subfields = fields[9 + sample_col].split(b":")
+                if gt_idx < len(subfields):
+                    gt = subfields[gt_idx]
+            recs.append(pack_frame(fields[0], fields[1], fields[3], fields[4], gt))
+        records = np.stack(recs) if recs else np.zeros((0, REC_SIZE), dtype=np.uint8)
+        return FramedRecords(records=records, total_seen=seen)

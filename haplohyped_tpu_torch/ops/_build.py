@@ -1,11 +1,14 @@
 """Build the port's native code at first use and load it with ``ctypes``.
 
 Each CUDA source ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface; the blosc HDF5
-filter is compiled the same way with the host C compiler.  Outputs go to the
-git-ignored ``haplohyped_tpu_torch/_build/``, named by a hash of the sources
-and the command, so a changed source rebuilds and an unchanged one is reused.
-A failed build raises; nothing here falls back.
+(``sm_90a``) into a shared library with a plain C interface.  The host code
+the port shares with the JAX package is compiled from the repository's
+``cpp/`` with the host compilers: the VCF framer (``hostio.cpp`` +
+``bcf.cpp``, with ``g++`` and the flags of ``cpp/Makefile``) and the blosc
+HDF5 filter.  Outputs go to the git-ignored ``haplohyped_tpu_torch/_build/``,
+named by a hash of the sources, their headers and the command, so a changed
+source rebuilds and an unchanged one is reused.  A failed build raises;
+nothing here falls back.
 """
 
 from __future__ import annotations
@@ -23,6 +26,13 @@ from typing import NamedTuple
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
+CPP_DIR = PACKAGE_DIR.parent / "cpp"
+
+#: the native VCF framer: sources and the header they include
+HOSTIO_SOURCES = (CPP_DIR / "hostio.cpp", CPP_DIR / "bcf.cpp")
+HOSTIO_DEPS = (CPP_DIR / "hostio_common.h",)
+#: ``cpp/Makefile``'s CXXFLAGS (warnings aside) and link line
+HOSTIO_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -38,19 +48,20 @@ class _Job(NamedTuple):
     proc: subprocess.Popen
 
 
-def _target(name: str, sources: list[Path], argv: list[str]) -> Path:
+def _target(name: str, files, argv: list[str]) -> Path:
     h = hashlib.sha256("\0".join(argv).encode())
-    for src in sources:
-        h.update(src.read_bytes())
+    for f in files:
+        h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(
-    name: str, sources: list[Path], compiler: str, flags, libs=()
+    name: str, sources, compiler: str, flags, libs=(), deps=()
 ) -> tuple[Path, _Job | None]:
     """Start compiling ``sources`` into one shared library.  Returns its path
-    and the job, or ``None`` for the job when the library is already built."""
-    target = _target(name, sources, [compiler, *flags, *libs])
+    and the job, or ``None`` for the job when the library is already built.
+    ``deps`` are headers the sources include: they enter the hash only."""
+    target = _target(name, [*sources, *deps], [compiler, *flags, *libs])
     if target.exists():
         return target, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -75,10 +86,10 @@ def _finish(job: _Job) -> str:
 
 
 def build_shared_library(
-    name: str, sources: list[Path], compiler: str, flags, libs=()
+    name: str, sources, compiler: str, flags, libs=(), deps=()
 ) -> Path:
     """Compile ``sources`` once into ``BUILD_DIR`` and return the library."""
-    target, job = _start(name, sources, compiler, flags, libs)
+    target, job = _start(name, sources, compiler, flags, libs, deps)
     if job is not None:
         _finish(job)
     return target
@@ -107,14 +118,50 @@ def _kernel_sources(name: str) -> list[Path]:
     return [CSRC_DIR / f"{name}.cu"]
 
 
+@functools.cache
+def _has_libdeflate() -> bool:
+    """Whether the host compiler finds libdeflate's header and library
+    (``cpp/Makefile`` then builds the framer with ``-DHH_USE_LIBDEFLATE``)."""
+    probe = subprocess.run(
+        ["g++", "-x", "c++", "-", "-ldeflate", "-o", os.devnull],
+        input="#include <libdeflate.h>\nint main() { return 0; }\n",
+        capture_output=True, text=True,
+    )
+    return probe.returncode == 0
+
+
+def _hostio_command() -> tuple[tuple[str, ...], tuple[str, ...]]:
+    """``(flags, libs)`` of the framer's ``g++`` command, as in ``cpp/Makefile``."""
+    if _has_libdeflate():
+        return (*HOSTIO_FLAGS, "-DHH_USE_LIBDEFLATE"), ("-lz", "-ldeflate")
+    return HOSTIO_FLAGS, ("-lz",)
+
+
+def _start_hostio() -> tuple[Path, _Job | None]:
+    flags, libs = _hostio_command()
+    return _start("hh_hostio", HOSTIO_SOURCES, "g++", flags, libs, HOSTIO_DEPS)
+
+
 def build_kernels() -> dict[str, str]:
-    """Build every kernel source, one ``nvcc`` each, all started together.
-    Returns each kernel's compiler output (empty where the build was cached)."""
+    """Build every kernel source (one ``nvcc`` each) and the native framer
+    (one ``g++``), all started together.  Returns each build's compiler
+    output (empty where the build was cached); the framer's key is
+    ``"hh_hostio"``."""
     nvcc = _nvcc()
     jobs = {
         n: _start(n, _kernel_sources(n), nvcc, NVCC_FLAGS)[1] for n in kernel_names()
     }
+    jobs["hh_hostio"] = _start_hostio()[1]
     return {n: (_finish(j) if j is not None else "") for n, j in jobs.items()}
+
+
+@functools.cache
+def load_hostio() -> ctypes.CDLL:
+    """The native VCF framer built from ``cpp/``, building it if needed."""
+    target, job = _start_hostio()
+    if job is not None:
+        _finish(job)
+    return ctypes.CDLL(str(target))
 
 
 @functools.cache

@@ -1,4 +1,5 @@
-"""Blosc HDF5 filter (id 32001), built and registered at first need.
+"""Blosc HDF5 filter (id 32001): built and registered at first need, and
+the cohort writer's compression settings.
 
 The filter is the repository's own C source, ``cpp/blosc_h5_filter.c``,
 linked against the system c-blosc (``libblosc.so.1``).  This package compiles
@@ -6,18 +7,24 @@ it into its own git-ignored build directory the first time a dataset needs
 it, then registers it with the libhdf5 that h5py loaded (``H5Zregister``).
 Gzip and uncompressed datasets never need it.  A dataset that does need it,
 on a machine where the plugin cannot be built or registered, raises an error
-that says so.  h5py is imported only where a file is read, so the package
-imports on a machine without it.
+that says so.  h5py is imported only where a file is read or written, so
+the package imports on a machine without it.
+
+Cohort tables are written with Blosc where h5py and the system libblosc are
+present, and with gzip where they are not, as the JAX package chooses
+(:func:`cohort_compression_kwargs`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
+import importlib.util
 import os
 import threading
 
-from haplohyped_tpu_torch.core.constants import BLOSC_FILTER_ID
+from haplohyped_tpu_torch.core.constants import BLOSC_FILTER_ID, COHORT_COMPRESSION_OPTS
 from haplohyped_tpu_torch.ops._build import PACKAGE_DIR, build_shared_library
 
 #: the plugin's C source, in the repository's ``cpp/`` directory
@@ -102,3 +109,54 @@ def read_dataset(dataset, selection=()):
     if needs_blosc(dataset):
         register_blosc_filter()
     return dataset[selection]
+
+
+@functools.cache
+def _libblosc_present() -> bool:
+    try:
+        ctypes.CDLL("libblosc.so.1")
+    except OSError:
+        return False
+    return True
+
+
+def blosc_available() -> bool:
+    """Whether cohort tables are written with Blosc: h5py is importable and
+    the system libblosc loads.  Then the filter is built and registered (a
+    failed build raises)."""
+    if importlib.util.find_spec("h5py") is None or not _libblosc_present():
+        return False
+    register_blosc_filter()
+    return True
+
+
+def set_blosc_nthreads(n: int) -> None:
+    """Set blosc-internal compression threads (the ``--cxx_threads`` knob)
+    of this package's plugin; does nothing where Blosc is unavailable or the
+    filter was registered by another plugin."""
+    if blosc_available() and _plugin_handle is not None:
+        _plugin_handle.hh_blosc_set_nthreads(ctypes.c_int(int(n)))
+
+
+#: Rows per chunk of cohort SNP tables (the JAX package's choice: ~143 KB
+#: chunks, measured there as the best for random-access reads).
+COHORT_CHUNK_ROWS = 4096
+
+
+def cohort_compression_kwargs(n_records: int | None = None) -> dict:
+    """``h5py.create_dataset`` kwargs for cohort SNP tables.
+
+    Blosc 32001 with the cohort cd_values where :func:`blosc_available`,
+    gzip level 4 otherwise.  With ``n_records``, chunks of
+    ``min(COHORT_CHUNK_ROWS, n_records)`` rows; without it, h5py chooses."""
+    if n_records is None or n_records <= 0:
+        chunks: bool | tuple = True
+    else:
+        chunks = (min(COHORT_CHUNK_ROWS, n_records),)
+    if blosc_available():
+        return {
+            "compression": BLOSC_FILTER_ID,
+            "compression_opts": COHORT_COMPRESSION_OPTS,
+            "chunks": chunks,
+        }
+    return {"compression": "gzip", "compression_opts": 4, "chunks": chunks}

@@ -39,10 +39,20 @@ def test_importing_every_module_leaves_jax_out():
     )
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.splitlines()[-1])
-    assert "haplohyped_tpu_torch.data.sampler" in res["imported"]
-    assert "haplohyped_tpu_torch.ops.window_kernel" in res["imported"]
+    for name in ("data.sampler", "ops.window_kernel", "ops.decode_kernel", "ops.vcf_decode",
+                 "hostio.native", "hostio.vcf", "pipeline.vcf_to_h5", "storage.fastwrite"):
+        assert f"haplohyped_tpu_torch.{name}" in res["imported"]
     bad = [m for m in res["modules"] if _forbidden(m)]
     assert bad == []
+    # h5py is imported only where a file is read or written
+    assert "h5py" not in res["modules"]
+
+
+def test_native_code_comes_from_the_ports_build_dir():
+    """No source of the port loads the JAX package's prebuilt libraries."""
+    for path in _sources():
+        assert "haplohyped_tpu/_native" not in path.read_text(), path
+        assert '"_native"' not in path.read_text(), path
 
 
 def _sources():
