@@ -50,6 +50,18 @@ Phases (any failure exits non-zero; nothing is caught):
    frame (back to back behind a sleep kernel, CUDA events; the profiler's
    reading beside), their bounds, the per-donor task split into framing,
    h2d, kernel, d2h, unpack and struct assembly, and records/s.
+11. The window-kernel lab's kernel against its plain versions, bit-equal:
+   ``full``, ``dma_only`` (coarse grid at 512 and 1024) and
+   ``compute_only``, each at 1, 8 and 32 windows a block, on the edge
+   fixtures and on the deployment state at B in {1, 61, 64, 2048} x K in
+   {128, 64} (L=1000) and L in {256, 4080} (B=64); every w bit-equal to
+   w=1.
+12. The lab's path: ``window_kernel_lab.main`` on the JAX lab's fixture at
+   its shape (B=2048, L=1000, K=64, 16 chained links in one CUDA graph),
+   then the same rows on the deployment state's chr1 at B=2048 and B=64,
+   with the lab kernel's launch count set to 0 just before and read just
+   after; each row's device ms a launch (CUDA events) and bound, and the
+   plain version's time at the lab shape.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -61,10 +73,8 @@ import argparse
 import functools
 import importlib.util
 import json
-import math
 import os
 import struct
-import subprocess
 import sys
 import tempfile
 import time
@@ -74,18 +84,14 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from haplohyped_tpu_torch import (
-    CohortTensors,
-    DeviceHaplotypeSampler,
-    GenomeTensors,
-    SamplerConfig,
-)
+from haplohyped_tpu_torch import DeviceHaplotypeSampler, SamplerConfig
 from haplohyped_tpu_torch.core.constants import (
     INT32_MAX,
     N_CODE,
     SNP_STRUCT_DTYPE,
     cohort_group_path,
 )
+from haplohyped_tpu_torch.core.timing import HBM_BYTES_PER_S, card_line, device_ms
 from haplohyped_tpu_torch.hostio.frame_format import REC12_SIZE, REC_SIZE
 from haplohyped_tpu_torch.hostio.vcf import VCFSource
 from haplohyped_tpu_torch.ops import _build
@@ -103,27 +109,22 @@ from haplohyped_tpu_torch.ops.vcf_decode import (
     unpack12_columns,
 )
 from haplohyped_tpu_torch.ops.window_kernel import (
+    SP,
     build_window_index,
     encode_windows_kernel,
 )
+from haplohyped_tpu_torch.ops.window_lab import (
+    VARIANTS,
+    encode_windows_lab,
+    lab_index,
+    lab_plain,
+)
 from haplohyped_tpu_torch.pipeline.records import snp_struct_from_frames12
 from haplohyped_tpu_torch.pipeline.vcf_to_h5 import VCFtoHDF5Converter
+from haplohyped_tpu_torch.tools import window_kernel_lab as lab
+from haplohyped_tpu_torch.tools.deployment import make_state
 
-#: GRCh38 primary-assembly lengths of chr1-chr12 (2,077,042,982 bp): the
-#: largest set of autosomes whose concatenation int32 ``offsets`` address
-GRCH38_CHR1_12 = {
-    "chr1": 248_956_422, "chr2": 242_193_529, "chr3": 198_295_559,
-    "chr4": 190_214_555, "chr5": 181_538_259, "chr6": 170_805_979,
-    "chr7": 159_345_973, "chr8": 145_138_636, "chr9": 138_394_717,
-    "chr10": 133_797_422, "chr11": 135_086_622, "chr12": 133_275_309,
-}
-N_DONORS = 128
-SNV_PER_BP = 1.2e-3  # one human genome against the reference
-N_REGIONS = 100_000
 SEQ_LENGTH, BATCH, K_MAX = 1000, 64, 128
-
-#: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s
-HBM_BYTES_PER_S = 3.35e12
 
 #: hand-made records for the decode kernels' edge cases: POS 1 and 0 (start
 #: wraps to 0xFFFFFFFF), genotypes missing in either allele or both, haploid
@@ -173,14 +174,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 # ---------------------------------------------------------------------------
 # kernel-against-plain comparison
 # ---------------------------------------------------------------------------
@@ -194,11 +187,12 @@ class Comparisons:
         self.count = 0
 
     def windows(self, got, want, what: str) -> None:
+        """Every field of ``got`` (windows, or the lab's with its sink)."""
         torch.cuda.synchronize()  # a fault in the kernel surfaces here
-        for name in ("hap1", "hap2", "n_variants", "overflow"):
+        for name in got._fields:
             g, w = getattr(got, name), getattr(want, name)
             check(g.shape == w.shape and g.dtype == w.dtype, f"{what}: {name} shape/dtype")
-            err = int((g.int() - w.int()).abs().max()) if g.numel() else 0
+            err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
             self.max_abs_err = max(self.max_abs_err, err)
             check(err == 0, f"{what}: {name} differs from the plain version (max |d| {err})")
         self.count += 1
@@ -208,58 +202,6 @@ class Comparisons:
         want = encode_haplotype_windows(*index.plain_args, donor, chrom, start, L=L, K=K)
         self.windows(got, want, what)
         return got
-
-
-# ---------------------------------------------------------------------------
-# phase 2: deployment-sized state, made on the device
-# ---------------------------------------------------------------------------
-
-def make_state(seed: int, device: torch.device):
-    g = torch.Generator(device=device).manual_seed(seed)
-    names = list(GRCH38_CHR1_12)
-    lengths = np.array(list(GRCH38_CHR1_12.values()), np.int64)
-    padded = -(-lengths // 128) * 128
-    offsets = np.concatenate([[0], np.cumsum(padded)[:-1]])
-    G = int(padded.sum())
-    check(offsets[-1] < 2**31, "flat offsets must fit int32")
-    codes = torch.randint(0, 4, (G,), dtype=torch.int8, device=device, generator=g)
-    for off, n, p in zip(offsets, lengths, padded):
-        codes[off + n : off + p] = N_CODE
-    genome = GenomeTensors(names, codes, offsets.astype(np.int32), lengths.astype(np.int32))
-
-    # positions: a cumulative sum of gaps uniform on [1, 2/rate - 1] (mean
-    # 1/rate), so rows come sorted; V leaves room for +0.5% on the longest
-    C = len(names)
-    V = -(-int(lengths.max() * SNV_PER_BP * 1.005) // 128) * 128
-    gap_hi = round(2 / SNV_PER_BP) - 1
-    pos = torch.empty((N_DONORS, C, V), dtype=torch.int32, device=device)
-    ref, alt, p1, p2 = (torch.empty((N_DONORS, C, V), dtype=torch.int8, device=device)
-                        for _ in range(4))
-    counts = torch.empty((N_DONORS, C), dtype=torch.int32, device=device)
-    len_t = torch.as_tensor(lengths, device=device)[:, None]
-    off_t = torch.as_tensor(offsets, device=device)[:, None]
-    for d in range(N_DONORS):
-        gaps = torch.randint(1, gap_hi + 1, (C, V), dtype=torch.int32, device=device, generator=g)
-        p = torch.cumsum(gaps, dim=1, dtype=torch.int32) - 1
-        valid = p < len_t
-        r = codes[off_t + torch.minimum(p, len_t - 1)]  # REF is the genome's base
-        a = (r + torch.randint(1, 4, (C, V), dtype=torch.int8, device=device, generator=g)) % 4
-        ph = torch.randint(0, 2, (2, C, V), dtype=torch.int8, device=device, generator=g)
-        pos[d] = torch.where(valid, p, INT32_MAX)
-        ref[d] = torch.where(valid, r, 0)
-        alt[d] = torch.where(valid, a, 0)
-        p1[d] = torch.where(valid, ph[0], 0)
-        p2[d] = torch.where(valid, ph[1], 0)
-        counts[d] = valid.sum(dim=1, dtype=torch.int32)
-    donors = [f"donor{d:03d}" for d in range(N_DONORS)]
-    cohort = CohortTensors(donors, list(names), pos, ref, alt, p1, p2, counts)
-
-    # regions lie on chromosomes drawn by length, uniform within each
-    rng = np.random.default_rng(seed)
-    rc = rng.choice(C, size=N_REGIONS, p=lengths / lengths.sum())
-    s = (rng.random(N_REGIONS) * (lengths[rc] - 2000)).astype(np.int64)
-    regions = np.stack([s, s + rng.integers(200, 2001, N_REGIONS)], axis=1)
-    return genome, cohort, regions
 
 
 # ---------------------------------------------------------------------------
@@ -417,16 +359,6 @@ def check_from_files(tmp: str, seed: int, cfg: SamplerConfig, cmp: Comparisons) 
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
-@functools.cache
-def _sleep_cycles_per_ms() -> float:
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    torch.cuda._sleep(20_000_000)
-    b.record()
-    b.synchronize()
-    return 20_000_000 / a.elapsed_time(b)
-
-
 def profiler_device_ms(fn, args_list) -> float | None:
     """Device busy time per call of ``fn`` over ``args_list``: the sum of the
     durations of every device op ``torch.profiler`` (CUPTI) records, over the
@@ -449,37 +381,6 @@ def profiled_ms(fn, args_list) -> float:
     ms = profiler_device_ms(fn, args_list)
     check(ms is not None, "the profiler recorded no device ops")
     return ms
-
-
-def device_ms(fn, args_list):
-    """``(device ms, host ms)`` per call of ``fn`` over ``args_list``.
-
-    The host's time is that of issuing every call once.  For the device's, a
-    sleep kernel holds the stream while the host issues every call again, so
-    the two CUDA events around them time the device's work alone (gaps
-    between launches on the device included), not the wrapper's host time.
-    The first event must still be pending when the host is done, or the
-    host fell behind and the timing is refused."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for args in args_list:
-        fn(*args)
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    sleep_ms = 5 * host_ms + 100
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(int(_sleep_cycles_per_ms() * sleep_ms))
-    a.record()
-    t0 = time.perf_counter()
-    for args in args_list:
-        fn(*args)
-    b.record()
-    issue_ms = (time.perf_counter() - t0) * 1e3
-    pending = not a.query()
-    b.synchronize()
-    check(pending, f"the host fell behind the device (slept {sleep_ms:.1f} ms, issued in "
-          f"{issue_ms:.1f} ms, first pass {host_ms:.1f} ms); timing refused")
-    return a.elapsed_time(b) / len(args_list), host_ms / len(args_list)
 
 
 def trace_sample_many(sampler, n_calls: int) -> str:
@@ -513,18 +414,12 @@ def trace_sample_many(sampler, n_calls: int) -> str:
 
 
 def bound_ms(batches, outs, L, K, V):
-    """Least time for the same work on an H100 SXM: each byte read once and
-    written once, over 3.35 TB/s.  Per window: (donor, chrom, start) 12 B,
-    offset and count 8 B, L genome bytes, two binary searches of
-    ceil(log2(V+1)) probes of 4 B, 6 B (position, packed codes) per applied
-    variant, and 2L + 8 output bytes.  Mean over the given batches."""
-    probes = 2 * math.ceil(math.log2(V + 1)) * 4
-    total = 0
-    for (d, _, _), out in zip(batches, outs):
-        B = d.shape[0]
-        n_apply = int(out.n_variants.clamp(max=K).sum())
-        total += B * (12 + 8 + L + probes + 2 * L + 8) + 6 * n_apply
-    return total / len(batches) / HBM_BYTES_PER_S * 1e3
+    """Least time for the same work on an H100 SXM, mean over the given
+    batches: the bytes model of ``window_kernel_lab.bound_ms`` (each byte
+    read once and written once, over 3.35 TB/s)."""
+    return float(np.mean([
+        lab.bound_ms("prod", d.shape[0], L, V, int(out.n_variants.clamp(max=K).sum()))
+        for (d, _, _), out in zip(batches, outs)]))
 
 
 # ---------------------------------------------------------------------------
@@ -884,6 +779,90 @@ def decode_times(card: str, ctx: dict, f12, f64) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 11-12: the window-kernel lab
+# ---------------------------------------------------------------------------
+
+#: the lab variants phase 11 checks, each with its coarse-grid stride
+LAB_CONFIGS = (("full", SP), ("dma_only", SP), ("dma_only", 1024), ("compute_only", SP))
+
+
+def lab_compare(index, draws, L, K, cmp: Comparisons, what: str) -> None:
+    """Every lab variant at every w of ``lab.LAB_WS`` bit-equal to its plain
+    version on ``draws``, and every w bit-equal to w = 1."""
+    indices = {sp: lab_index(index, sp) for sp in {sp for _, sp in LAB_CONFIGS}}
+    for variant, sp in LAB_CONFIGS:
+        idx = indices[sp]
+        want = lab_plain(idx, *draws, L=L, K=K, variant=variant, sp=sp)
+        at_w1 = None
+        for w in lab.LAB_WS:
+            got = encode_windows_lab(idx, *draws, L=L, K=K, variant=variant, w=w, sp=sp)
+            cmp.windows(got, want, f"lab {variant} sp={sp} w={w} {what}")
+            at_w1 = at_w1 or got
+            check(all(torch.equal(a, b) for a, b in zip(got, at_w1)),
+                  f"lab {variant} sp={sp} {what}: w={w} differs from w=1")
+
+
+def lab_checks(sampler, seed: int, cmp: Comparisons) -> None:
+    """Phase 11: the lab kernel against its plain versions on the edge
+    fixtures and on the deployment state."""
+    dev = sampler.device
+    for name, (state, dr, L, K) in edge_fixtures().items():
+        idx = build_window_index(*(torch.from_numpy(a).to(dev) for a in state))
+        lab_compare(idx, [torch.from_numpy(a).to(dev) for a in dr], L, K, cmp, name)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    shapes = ([(B, SEQ_LENGTH, K) for B in (1, 61, 64, 2048) for K in (K_MAX, 64)]
+              + [(BATCH, L, K_MAX) for L in (256, 4080)])
+    for B, L, K in shapes:
+        lab_compare(sampler.index, random_draws(sampler, B, L, gen), L, K, cmp,
+                    f"B={B} L={L} K={K}")
+    log(f"lab checks: {cmp.count} lab kernel/plain comparisons bit-equal ({VARIANTS} x w in "
+        f"{lab.LAB_WS}, dma_only at sp 512 and 1024; edge fixtures and B in {{1, 61, 64, 2048}} x "
+        f"K in {{128, 64}} at L=1000, L in {{256, 4080}} at B=64); every w equal to w=1")
+
+
+def lab_path(card: str, seed: int, sampler, cmp: Comparisons) -> dict:
+    """Phase 12: the lab's measurement on the lab fixture through the tool's
+    entry point at the JAX lab's shape, then on the deployment state's chr1
+    at the same shape and at the main path's B, with the lab kernel's launch
+    count set to 0 just before and read just after.  Returns the numbers of
+    the ``kernels`` line: launches, and ``full_w1``'s device ms, plain ms and
+    bound at the lab shape."""
+    dev = sampler.device
+    encode_windows_lab.launches = 0
+    t0 = time.perf_counter()
+    res = lab.main(["--state", "lab", "--seed", str(seed)])
+    Lc = int(sampler.genome.lengths[0])
+    D = sampler.cohort.num_donors
+    runs = {f"lab fixture B={lab.LAB_B}": res["results"]}
+    for B in (lab.LAB_B, BATCH):
+        runs[f"deployment chr1 B={B}"] = lab.lab_rows(sampler.index, Lc, D, B=B, seed=seed)
+    launches = encode_windows_lab.launches
+    log(f"lab path: {len(runs)} runs of {len(res['results'])} rows in "
+        f"{time.perf_counter() - t0:.1f} s; lab kernel launches {launches}")
+    check(launches > 0, "the lab's path never launched the lab kernel")
+    for title, rows in runs.items():
+        for r in rows:
+            log(f"[{card}] lab {title} L={lab.LAB_L} K={lab.LAB_K} n_chain={lab.LAB_N_CHAIN} "
+                f"{r['name']}: {r['device_ms_per_launch']:.6f} ms a launch (CUDA events, back "
+                f"to back), {r['device_windows_per_sec']:,.0f} windows/s on the device, bound "
+                f"{r['bound_ms']:.6f} ms (bytes, 3.35 TB/s); chained {r['median_s']:.6f} s a "
+                f"call, {r['windows_per_sec']:,.0f} windows/s (host clock)")
+
+    # full_w1 against its plain version at the lab shape, and the plain time
+    index, Lc, D = lab.build_fixture(device=dev)
+    draws = lab.draws(np.random.default_rng(seed + 4), Lc, D, lab.LAB_B, lab.LAB_L, dev)
+    kw = dict(L=lab.LAB_L, K=lab.LAB_K, variant="full")
+    plain = functools.partial(lab_plain, index, **kw)
+    plain_ms = device_ms(plain, [draws])[0]
+    cmp.windows(encode_windows_lab(index, *draws, **kw), plain(*draws), "lab fixture full_w1")
+    full = next(r for r in res["results"] if r["name"] == "full_w1")
+    log(f"[{card}] lab fixture full plain version, B={lab.LAB_B}: {plain_ms:.5f} ms a call "
+        "(CUDA events behind a sleep kernel)")
+    return {"launches": launches, "ms": full["device_ms_per_launch"], "plain_ms": plain_ms,
+            "bound_ms": full["bound_ms"]}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1053,6 +1032,11 @@ def main() -> int:
         times = decode_times(card, ctx, f12, f64)
         del f12, f64
 
+    # -- 11-12. the window-kernel lab ----------------------------------------
+    lab_cmp = Comparisons()
+    lab_checks(sampler, args.seed, lab_cmp)
+    lab_times = lab_path(card, args.seed, sampler, lab_cmp)
+
     kernels = [{
         "name": "window_kernel",
         "route": "cuda",
@@ -1081,6 +1065,19 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
         })
+    kernels.append({
+        "name": "window_kernel_lab",
+        "route": "cuda",
+        "source": "haplohyped_tpu_torch/csrc/window_kernel_lab.cu",
+        "replaces": "tools/window_kernel_lab.py:133",
+        "launches": lab_times["launches"],
+        "max_abs_err": lab_cmp.max_abs_err,
+        "ms": lab_times["ms"],
+        "plain_ms": lab_times["plain_ms"],
+        "bound_ms": lab_times["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    })
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

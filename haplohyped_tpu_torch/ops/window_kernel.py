@@ -75,7 +75,8 @@ def build_window_index(genome, offsets, pos, ref, alt, p1, p2, counts) -> Window
     return WindowIndex(genome, offsets, pos, ref, alt, p1, p2, counts, sub12, grid)
 
 
-def _check(index: WindowIndex, donor_idx, chrom_idx, start, L: int, K: int):
+def _check(index: WindowIndex, donor_idx, chrom_idx, start, L: int, K: int, sp: int = SP):
+    """Raise on what the kernel does not take; ``sp`` is the grid's stride."""
     dev = start.device
     want = {
         "genome": torch.int8, "offsets": torch.int32, "pos": torch.int32,
@@ -98,7 +99,7 @@ def _check(index: WindowIndex, donor_idx, chrom_idx, start, L: int, K: int):
     G = index.genome.shape[0]
     if index.sub12.shape != (D, C, V) or index.counts.shape != (D, C):
         raise ValueError("sub12/counts shapes do not match pos")
-    if index.grid.shape != (D, C, -(-V // SP)) or index.offsets.shape != (C,):
+    if index.grid.shape != (D, C, -(-V // sp)) or index.offsets.shape != (C,):
         raise ValueError("grid/offsets shapes do not match pos")
     if donor_idx.shape != (B,) or chrom_idx.shape != (B,):
         raise ValueError("donor_idx and chrom_idx must be (B,), like start")
