@@ -19,15 +19,22 @@ Phases (any failure exits non-zero; nothing is caught):
    the same draws.
 4. Edge fixtures, kernel against plain, bit-equal: empty rows, a row that
    overflows K, duplicate positions, windows crossing coarse-grid buckets, a
-   window clamped at the genome's end, and every B in {1, 61, 64, 4096} x L
-   in {256, 1000, 4080} x K in {8, 64, 128} on the deployment state.
+   window clamped at the genome's end, starts and ends on the bucket
+   table's boundaries, a slice longer than the block with duplicate runs cut
+   by K, starts past a row's last position, past the table and at the int32
+   extremes, and every B in {1, 61, 64, 4096} x L in {256, 333, 1000, 2049,
+   4080} x K in {8, 64, 128} on the deployment state.
 5. ``DeviceHaplotypeSampler.from_files`` on small gzip HDF5 files in the
    reference layout, one batch against the plain version (where h5py is
    installed).
-6. Times on the card: the kernel and the plain version per batch (device
-   busy time from ``torch.profiler``; the kernel also back to back behind a
-   sleep kernel with CUDA events), the kernel's bound, ``sample_many`` windows/s and ``sample()``
-   ms (host clock), and a ``torch.profiler`` trace of ``sample_many``.
+6. Times on the card: the kernel and the plain version per batch at the
+   main path's two launch shapes, B=64 (``sample()``) and B=1024
+   (``sample_many(16)``) (device busy time from ``torch.profiler``; the
+   kernel also back to back behind a sleep kernel with CUDA events), the
+   wrapper's host time, the kernel's bound, the slice of the row it reads,
+   a launch floor (``fill_`` of a (B,) int32 tensor, timed the same two
+   ways), ``sample_many`` windows/s and ``sample()`` ms (host clock), and a
+   ``torch.profiler`` trace of ``sample_many``.
 7. Converter input from ``--seed``, under the git-ignored build directory: a
    BGZF chr1 cohort VCF of 6,468,094 records (1000 Genomes Phase 3 chr1)
    over GRCh38 chr1's length, 8 samples, with SNVs, indels, multi-allelic
@@ -109,9 +116,12 @@ from haplohyped_tpu_torch.ops.vcf_decode import (
     unpack12_columns,
 )
 from haplohyped_tpu_torch.ops.window_kernel import (
+    BK,
     SP,
     build_window_index,
     encode_windows_kernel,
+    window_bounds,
+    window_slice,
 )
 from haplohyped_tpu_torch.ops.window_lab import (
     VARIANTS,
@@ -277,6 +287,75 @@ def edge_fixtures():
     fx["genome_end_clamp"] = (
         (genome, np.array([0, 640], np.int32), pos, ref, alt, p1, p2, counts),
         (np.zeros(3, np.int32), np.ones(3, np.int32), np.zeros(3, np.int32)), 256, 8)
+
+    # the bucket table's edges (buckets of 2^BK = 4,096 bp): a variant every
+    # 97 bp plus variants on both sides of each boundary and five at 4,096
+    # itself (K=4 cuts that run); starts on boundaries, ends on boundaries
+    # (s + L = j * 4,096), windows inside one bucket and across two; L odd
+    rng = np.random.default_rng(31)
+    genome = rng.integers(0, 5, size=20_000, dtype=np.int8)
+    pos, ref, alt, p1, p2, counts = _empty_cohort(2, 1, 512)
+    p = np.sort(np.concatenate([np.arange(0, 16_000, 97), [4095, 8191, 8192, 12287, 12288],
+                                [4096] * 5]))
+    n = p.size
+    pos[0, 0, :n] = p
+    ref[0, 0, :n] = genome[p]
+    alt[0, 0, :n] = np.arange(n) % 5
+    p1[0, 0, :n] = rng.integers(0, 2, n)
+    p2[0, 0, :n] = rng.integers(0, 2, n)
+    counts[0, 0] = n
+    L = 333
+    st = np.array([0, 4096, 8192, 12288, 4096 - L, 8192 - L, 12288 - L, 4095, 8191,
+                   5000, 4000, 8000, 1, 4097 - L, 15_999, 0, 4096], np.int32)
+    dn = (np.arange(st.size) >= st.size - 2).astype(np.int32)  # the last two: donor 1
+    fx["bucket_edges"] = (
+        (genome, np.zeros(1, np.int32), pos, ref, alt, p1, p2, counts),
+        (dn, np.zeros(st.size, np.int32), st), L, 4)
+
+    # a slice longer than the block: every position of 100-599 three times
+    # and of 1,000-1,499 twice, all in bucket 0, so a window holds over a
+    # thousand variants; at K=128 a run of three straddles the cut (128 =
+    # 42 * 3 + 2) and a run of two ends on it (128 = 64 * 2)
+    rng = np.random.default_rng(41)
+    genome = rng.integers(0, 5, size=8192, dtype=np.int8)
+    p = np.concatenate([np.repeat(np.arange(100, 600), 3), np.repeat(np.arange(1000, 1500), 2)])
+    n = p.size
+    pos, ref, alt, p1, p2, counts = _empty_cohort(1, 1, n + 7)
+    pos[0, 0, :n] = p
+    ref[0, 0, :n] = genome[p]
+    alt[0, 0, :n] = np.arange(n) % 5
+    p1[0, 0, :n] = rng.integers(0, 2, n)
+    p2[0, 0, :n] = rng.integers(0, 2, n)
+    counts[0, 0] = n
+    st = np.array([100, 1000, 101, 1001, 0, 550, 599, 900, 1450, 2000, 7000], np.int32)
+    z = np.zeros(st.size, np.int32)
+    fx["dense_slice"] = (
+        (genome, np.zeros(1, np.int32), pos, ref, alt, p1, p2, counts), (z, z, st), 777, 128)
+
+    # starts past the row's last position, past the table's last bucket
+    # (positions end below 12,288 = 3 buckets), the int32 extremes, and
+    # before the row; donor 1 has no variants
+    rng = np.random.default_rng(51)
+    genome = rng.integers(0, 5, size=30_000, dtype=np.int8)
+    pos, ref, alt, p1, p2, counts = _empty_cohort(2, 2, 256)
+    for c, top in ((0, 9000), (1, 9990)):
+        p = np.sort(rng.choice(top, size=200, replace=False)).astype(np.int32)
+        p[-1] = top
+        pos[0, c, :200] = p
+        ref[0, c, :200] = genome[p]
+        alt[0, c, :200] = (genome[p] + 1) % 5
+        p1[0, c, :200] = rng.integers(0, 2, 200)
+        p2[0, c, :200] = rng.integers(0, 2, 200)
+        counts[0, c] = 200
+    # (donor, chrom, start); the int32 extremes on chrom 0, whose offset is
+    # 0, so that offset + start stays in int32 as it does in the JAX package
+    dr = np.array([(0, 0, 9001), (0, 1, 9991), (0, 0, 9500), (0, 1, 12000), (0, 0, 12287),
+                   (0, 1, 12288), (0, 0, 15_000), (0, 0, 25_000), (0, 0, 2**31 - 1),
+                   (0, 0, 2**31 - 600), (0, 1, -50), (0, 0, -2**31), (0, 0, 8800),
+                   (1, 1, 9000), (1, 0, 20_000)], np.int64).T.astype(np.int32)
+    fx["far_starts"] = (
+        (genome, np.array([0, 20_000], np.int32), pos, ref, alt, p1, p2, counts),
+        tuple(np.ascontiguousarray(x) for x in dr), 600, 8)
     return fx
 
 
@@ -376,13 +455,6 @@ def profiler_device_ms(fn, args_list) -> float | None:
     return sum(e.time_range.elapsed_us() for e in dev) / len(args_list) / 1e3
 
 
-def profiled_ms(fn, args_list) -> float:
-    """:func:`profiler_device_ms`, failing where the profiler recorded nothing."""
-    ms = profiler_device_ms(fn, args_list)
-    check(ms is not None, "the profiler recorded no device ops")
-    return ms
-
-
 def trace_sample_many(sampler, n_calls: int) -> str:
     """Device busy share and the heaviest device ops of ``sample_many(16)``
     under ``torch.profiler`` (the profiler's own host cost inflates the
@@ -413,13 +485,102 @@ def trace_sample_many(sampler, n_calls: int) -> str:
             f"{1 - busy / wall_us:.3f}; {len(dev) / n_calls:.0f} device ops/call; top: {rows}")
 
 
-def bound_ms(batches, outs, L, K, V):
-    """Least time for the same work on an H100 SXM, mean over the given
-    batches: the bytes model of ``window_kernel_lab.bound_ms`` (each byte
-    read once and written once, over 3.35 TB/s)."""
-    return float(np.mean([
-        lab.bound_ms("prod", d.shape[0], L, V, int(out.n_variants.clamp(max=K).sum()))
-        for (d, _, _), out in zip(batches, outs)]))
+def window_batches(sampler, first_step: int, n: int, steps: int) -> list:
+    """``n`` batches of (donor, chrom, start), each the draws of ``steps``
+    consecutive sampling steps from ``first_step`` on (``steps * B``
+    windows, as ``sample_many(steps)`` encodes them)."""
+    out = []
+    for i in range(first_step, first_step + n * steps, steps):
+        r, d, c = (torch.cat(t) for t in zip(*(sampler.draw_indices(j)
+                                                for j in range(i, i + steps))))
+        out.append((d, c, sampler.window_starts(r, c)))
+    return out
+
+
+def _ms_text(ms: float | None, unit: str = "ms") -> str:
+    return "no device ops recorded" if ms is None else f"{ms:.6f} {unit}"
+
+
+def window_times(card: str, index, batches, n_plain: int, cmp: "Comparisons") -> dict:
+    """The window kernel on ``batches`` (one shape): device busy time per
+    batch (profiler) and back to back behind a sleep kernel (CUDA events);
+    the wrapper's host time; the plain version on the first ``n_plain``
+    batches; the bound; the slice of the row the kernel reads (and the plain
+    model of its search, ``window_bounds``, against its ``n_variants``); and
+    the launch floor, a ``fill_`` of a (B,) int32 tensor timed the same two
+    ways.  Returns the kernel's and the plain version's profiler ms (``None``
+    where the profiler recorded nothing) and the bound."""
+    L, K = SEQ_LENGTH, K_MAX
+    B = batches[0][0].shape[0]
+    kern = functools.partial(encode_windows_kernel, index, L=L, K=K)
+    plain = functools.partial(encode_haplotype_windows, *index.plain_args, L=L, K=K)
+    ev_kernel, host_kernel = device_ms(kern, batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in batches[:n_plain]:
+        plain(*x)
+    host_plain = (time.perf_counter() - t0) * 1e3 / n_plain
+    ms_kernel = profiler_device_ms(kern, batches)
+    # the plain version's many launches a batch fill the launch queue behind
+    # a sleeping device, so its device time comes from the profiler alone
+    ms_plain = profiler_device_ms(plain, batches[:n_plain])
+    buf = torch.empty(B, dtype=torch.int32, device=index.pos.device)
+    fill = [(buf,)] * len(batches)
+    ev_floor, host_floor = device_ms(lambda x: x.fill_(7), fill)
+    prof_floor = profiler_device_ms(lambda x: x.fill_(7), fill)
+
+    outs = [kern(*x) for x in batches]
+    slices = [window_slice(index, *x, L) for x in batches]
+    bound = bound_bytes(slices, outs, L, K)
+    ms_bound = bound["bytes"] / len(batches) / HBM_BYTES_PER_S * 1e3
+    for (d, c, s), out in zip(batches[:4], outs[:4]):
+        cmp.windows(out, plain(d, c, s), f"timed batch B={B}")
+    lo, hi = window_bounds(index, *batches[0], L)
+    check(torch.equal((hi - lo).int(), outs[0].n_variants),
+          f"window_bounds' n_in differs from the kernel's at B={B}")
+    n = torch.cat([e - a for a, e in slices]).double()
+    n_win = B * len(batches)
+    log(f"[{card}] window kernel B={B} L={L} K={K}, {len(batches)} batches of fresh "
+        f"windows: {_ms_text(ms_kernel, 'ms/batch')} device busy (profiler), "
+        f"{ev_kernel:.6f} ms/batch back to back (CUDA events), "
+        f"{host_kernel:.5f} ms/call wrapper host time; bound {ms_bound:.7f} ms "
+        f"(bytes, 3.35 TB/s)")
+    log(f"[{card}] window kernel B={B}: the slice of the row read a window holds "
+        f"{float(n.mean()):.2f} entries on average, {int(n.max())} at most, "
+        f"{bound['applied'] / n_win:.3f} applied; the kernel reads "
+        f"~{12 + 16 + L + 16 + 6 * float(n.mean()):.0f} B a window, the bound counts "
+        f"{(bound['bytes'] - n_win * (2 * L + 8)) / n_win:.1f} B of reads "
+        f"({bound['search'] / n_win:.1f} B of search)")
+    log(f"[{card}] plain version, same shape, {n_plain} batches: "
+        f"{_ms_text(ms_plain, 'ms/batch')} device busy (profiler), "
+        f"{host_plain:.5f} ms/call host time")
+    log(f"[{card}] launch floor B={B}: fill_ of a ({B},) int32 tensor, {len(fill)} calls: "
+        f"{ev_floor:.6f} ms/call back to back (CUDA events), "
+        f"{_ms_text(prof_floor, 'ms/call')} device busy (profiler), "
+        f"{host_floor:.5f} ms/call host time")
+    return {"ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": ms_bound}
+
+
+def bound_bytes(slices, outs, L, K) -> dict:
+    """The bytes the window encode must move for the given batches, with
+    each byte read once and written once: per window (donor, chrom, start)
+    12 B, offset and count 8 B, the two bucket-table entries that bound its
+    slice of the row 8 B, L genome bytes, 6 B (position, packed codes) per
+    applied variant, 4 B per other position of the slice (at most two binary
+    searches of it, 2 ceil(log2(n + 1)) probes), and 2L + 8 B of output.
+    Returns the total, its search part (table entries and other positions)
+    and the applied variants."""
+    total = search = applied = 0.0
+    for (a, e), out in zip(slices, outs):
+        n = (e - a).double()
+        n_apply = out.n_variants.clamp(max=K).double()
+        other = torch.minimum(n - n_apply, 2 * torch.ceil(torch.log2(n + 1)))
+        B = n.numel()
+        s = 8 * B + 4 * float(other.sum())
+        applied += float(n_apply.sum())
+        search += s
+        total += B * (12 + 8 + L + 2 * L + 8) + s + 6 * float(n_apply.sum())
+    return {"bytes": total, "search": search, "applied": applied}
 
 
 # ---------------------------------------------------------------------------
@@ -915,10 +1076,14 @@ def main() -> int:
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     main_launches = encode_windows_kernel.launches
-    index_bytes = sampler.index.sub12.nbytes + sampler.index.grid.nbytes
+    first = sampler.index.first
+    index_bytes = sampler.index.sub12.nbytes + sampler.index.grid.nbytes + first.nbytes
     log(f"main path: sampler construction (index build) {t1 - t0:.3f} s, "
         f"{(torch.cuda.memory_allocated() - mem0) / 2**30:.3f} GiB more allocated "
-        f"(index {index_bytes / 2**30:.3f} GiB); 3 x sample() + sample_many(16) "
+        f"(index {index_bytes / 2**30:.3f} GiB: sub12 {sampler.index.sub12.nbytes / 2**30:.3f}, "
+        f"grid {sampler.index.grid.nbytes / 2**30:.3f}, bucket table first "
+        f"{tuple(first.shape)} at BK={BK} {first.nbytes / 2**30:.3f} GiB); "
+        f"3 x sample() + sample_many(16) "
         f"{time.perf_counter() - t1:.3f} s; kernel launches {main_launches}; "
         f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     check(sampler.kernel == "kernel", "auto must pick the kernel on CUDA")
@@ -946,7 +1111,7 @@ def main() -> int:
         cmp.encode(idx, *(torch.from_numpy(a).to(dev) for a in dr), L, K, name)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     for B in (1, 61, 64, 4096):
-        for L in (256, 1000, 4080):
+        for L in (256, 333, 1000, 2049, 4080):
             for K in (8, 64, 128):
                 d, c, s = random_draws(sampler, B, L, gen)
                 cmp.encode(sampler.index, d, c, s, L, K, f"B={B} L={L} K={K}")
@@ -985,40 +1150,14 @@ def main() -> int:
     log(f"[{card}] sample_many(16) pipelined: {wps:,.0f} windows/s ({n_rep} calls, "
         f"one synchronize)")
 
+    # fresh random windows (the L2 is cold for most) at the main path's two
+    # launch shapes: sample()'s B=64 and sample_many(16)'s B=1024
     index = sampler.index
-    batches = []
-    for step in range(1000, 1200):  # fresh random windows: the L2 is cold for most
-        r, d, c = sampler.draw_indices(step)
-        batches.append((d, c, sampler.window_starts(r, c)))
-
-    def kern(d, c, s):
-        return encode_windows_kernel(index, d, c, s, L=SEQ_LENGTH, K=K_MAX)
-
-    def plain(d, c, s):
-        return encode_haplotype_windows(*index.plain_args, d, c, s, L=SEQ_LENGTH, K=K_MAX)
-
-    ev_kernel, host_kernel = device_ms(kern, batches)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for x in batches[:40]:
-        plain(*x)
-    host_plain = (time.perf_counter() - t0) * 1e3 / 40
-    ms_kernel = profiled_ms(kern, batches)
-    # the plain version's many launches a batch fill the launch queue behind
-    # a sleeping device, so its device time comes from the profiler alone
-    ms_plain = profiled_ms(plain, batches[:40])
-    outs = [kern(*x) for x in batches]
-    ms_bound = bound_ms(batches, outs, SEQ_LENGTH, K_MAX, V)
-    for (d, c, s), out in zip(batches[:8], outs[:8]):
-        cmp.windows(out, plain(d, c, s), "timed batch")
-    log(f"[{card}] window kernel B=64 L=1000 K=128, {len(batches)} batches of fresh "
-        f"windows: {ms_kernel:.5f} ms/batch device busy (profiler), "
-        f"{ev_kernel:.5f} ms/batch back to back (CUDA events), "
-        f"{host_kernel:.5f} ms/call wrapper host time; bound {ms_bound:.6f} ms "
-        f"(bytes, 3.35 TB/s)")
-    log(f"[{card}] plain version, same shape, 40 batches: {ms_plain:.5f} ms/batch "
-        f"device busy (profiler), {host_plain:.5f} ms/call host time")
+    t64 = window_times(card, index, window_batches(sampler, 1000, 200, 1), 40, cmp)
+    check(None not in (t64["ms"], t64["plain_ms"]), "the profiler recorded no device ops")
+    ms_kernel, ms_plain, ms_bound = t64["ms"], t64["plain_ms"], t64["bound_ms"]
     log(f"[{card}] " + trace_sample_many(sampler, 10))
+    window_times(card, index, window_batches(sampler, 2000, 40, 16), 4, cmp)
 
     # -- 7-10. the converter -------------------------------------------------
     dec = DecodeComparisons()

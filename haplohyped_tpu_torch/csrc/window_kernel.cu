@@ -3,8 +3,8 @@
 // Replaces the TPU kernel haplohyped_tpu/ops/pallas_window.py::_window_kernel
 // (launched by encode_windows_pallas), and computes in one launch the whole
 // contract of that wrapper, including the row/offset/count lookups and the
-// coarse search that the JAX wrapper does outside its kernel.  Output is
-// bit-equal to the plain PyTorch version,
+// search that the JAX wrapper does outside its kernel.  Output is bit-equal
+// to the plain PyTorch version,
 // haplohyped_tpu_torch/ops/haplotype_window.py::encode_haplotype_windows.
 //
 // Per window b (one block of kThreads threads):
@@ -16,53 +16,125 @@
 //   sub1 (hap1) and sub2 (hap2); the last variant wins on duplicates
 //   overflow = max(n_in - K, 0)
 //
-// What bounds it on this card.  The bytes are few: L genome bytes, a few KB
-// of searches, 6 bytes per applied variant and 2L + 8 output bytes per
-// window; at B=64, L=1000 that is about 0.2 MB, some 60 ns at 3.35 TB/s.
-// The time goes to latency: a window needs a chain of dependent loads
-// (indices -> row count and coarse grid -> position chunk -> applied
-// variants), each a trip to device memory.
+// What bounds it on this card.  The bytes are few: L genome bytes, a few
+// dozen bytes of search, 6 bytes per applied variant and 2L + 8 output bytes
+// per window; at B=64, L=1000 about 0.2 MB, some 60 ns at 3.35 TB/s.  The
+// time goes to latency: every dependent trip to device memory costs about a
+// microsecond, and a window's loads form a chain.
 //
-// What the design does about it.  The search is two levels, each one round
-// of loads that all threads of the block issue together: the block counts
-// over the coarse grid pos[row, ::SP] (contiguous, a few KB), then over one
-// SP-long chunk of positions.  The lo and hi searches share both rounds.
-// The genome window is read straight into registers, independently of the
-// search.  The <= K applied variants are staged in shared memory; each
-// thread owns output bytes j and walks k = 0..n_apply-1 in order, keeping
-// the last match: last-wins with no atomics and no scatter.  Unapplied lanes
-// are never read (the loop stops at n_apply).  One block per window takes
-// any B with no tail case.  Making it fast (several windows per block, async
-// copies that overlap the chains of many windows) is later work.
+// What the design does about it.  Three dependent trips, each a round of
+// independent loads in flight together, then the stores:
+//   1. donor, chrom, start;
+//   2. counts[row], offsets[chrom], and two entries of the row's bucket table
+//      first[row, j] = #{pos < j << kBK}: j = start >> kBK and
+//      j = ((start + L - 1) >> kBK) + 1.  Every position before the first
+//      entry is < start and every one from the second on is >= start + L
+//      (rows are sorted), so the slice between them holds every applied
+//      variant and what lo and hi need to be counted.  No coarse grid is
+//      read.  Buckets past the table clamp: the slice then runs to the
+//      row's count;
+//   3. the genome window, copied with cp.async (16 bytes a thread, a
+//      16-byte-aligned superset of the window, one copy a plane) into two
+//      shared planes, hap1's and hap2's, issued first; then the slice's
+//      positions and codes, one entry a thread, into registers.
+// lo and hi come from one block reduction over the slice.  Substitution is
+// a scatter: the thread holding applied variant k writes its codes at byte
+// pos - start of the planes if it is the last applied variant at that
+// position (k + 1 == n_apply or the next position differs), so sorted order
+// gives last-wins with one writer a byte and no atomics.  Rows are stored
+// from the planes with 16-byte vector stores; the ragged head and tail of a
+// row go byte by byte.  A slice longer than the block (dense rows) is
+// counted in strides of kThreads and its applied variants are loaded again
+// after the count; a window longer than kTile bytes is staged and stored in
+// tiles.  Both stay correct for any input, only slower.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxK = 128;
+// threads a block: at 40 registers a thread, 256 would leave room for 6
+// blocks an SM, and a batch of 1,024 windows would take two waves on 132 SMs
+constexpr int kThreads = 128;
+constexpr int kBK = 12;              // log2 of the bucket width in bp
+constexpr int kTile = 2048;          // window bytes staged at once
+constexpr int kPlane = kTile + 32;   // a tile's aligned superset + one word of over-read
 
 __device__ __forceinline__ int warp_sum(int v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// Sums two per-thread counts over the block; every thread gets both sums.
-__device__ __forceinline__ int2 block_sum2(int a, int b, int2* scratch) {
-  a = warp_sum(a);
-  b = warp_sum(b);
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();  // an earlier call may still be reading scratch
-  if ((threadIdx.x & 31) == 0) scratch[warp] = make_int2(a, b);
-  __syncthreads();
-  int2 t = make_int2(0, 0);
-#pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) {
-    t.x += scratch[w].x;
-    t.y += scratch[w].y;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(__cvta_generic_to_global(gmem)) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Starts copying genome bytes [lo, lo + len) into both planes; byte j of the
+// range lands at plane offset head + j, where head = (address of lo) & 15.
+// Chunks of 16 bytes inside [0, G) go by cp.async; a chunk that straddles
+// the genome's ends goes byte by byte.  Returns head.
+__device__ __forceinline__ int stage_tile(int8_t (*planes)[kPlane], const int8_t* genome,
+                                          long long G, long long lo, int len) {
+  const int head = static_cast<int>(reinterpret_cast<uintptr_t>(genome + lo) & 15);
+  const long long base = lo - head;
+  const int nch = (head + len + 15) >> 4;
+  for (int i = threadIdx.x; i < 2 * nch; i += kThreads) {
+    const int pl = i >= nch;
+    const int ch = i - pl * nch;
+    const long long g = base + 16LL * ch;
+    int8_t* dst = planes[pl] + 16 * ch;
+    if (g >= 0 && g + 16 <= G) {
+      cp_async16(dst, genome + g);
+    } else {
+      for (int x = 0; x < 16; ++x)
+        if (g + x >= 0 && g + x < G) dst[x] = genome[g + x];
+    }
   }
-  return t;
+  return head;
+}
+
+// Stores plane bytes [head, head + n) of both planes to out1 and out2:
+// 16-byte stores where a 16-byte-aligned chunk of the output lies inside the
+// row, byte stores for the ragged head and tail.
+__device__ __forceinline__ void store_tile(int8_t (*planes)[kPlane], int head,
+                                           int8_t* out1, int8_t* out2, int n) {
+  const int h1 = static_cast<int>(reinterpret_cast<uintptr_t>(out1) & 15);
+  const int h2 = static_cast<int>(reinterpret_cast<uintptr_t>(out2) & 15);
+  const int n1 = (h1 + n + 15) >> 4;
+  const int n2 = (h2 + n + 15) >> 4;
+  for (int i = threadIdx.x; i < n1 + n2; i += kThreads) {
+    const int pl = i >= n1;
+    const int ch = pl ? i - n1 : i;
+    const int oh = pl ? h2 : h1;
+    int8_t* dst = (pl ? out2 : out1) - oh + 16 * ch;
+    const int j0 = 16 * ch - oh;  // row byte of the chunk's first byte
+    if (j0 >= 0 && j0 + 16 <= n) {
+      // plane bytes q .. q + 15 from five aligned words and funnel shifts
+      const int q = head + j0;
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(planes[pl] + (q & ~3));
+      const unsigned sh = (q & 3) * 8;
+      uint4 r;
+      r.x = __funnelshift_r(w[0], w[1], sh);
+      r.y = __funnelshift_r(w[1], w[2], sh);
+      r.z = __funnelshift_r(w[2], w[3], sh);
+      r.w = __funnelshift_r(w[3], w[4], sh);
+      *reinterpret_cast<uint4*>(dst) = r;
+    } else {
+      const int8_t* src = planes[pl] + head;
+      for (int x = 0; x < 16; ++x) {
+        const int j = j0 + x;
+        if (j >= 0 && j < n) dst[x] = src[j];
+      }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) window_kernel(
@@ -70,80 +142,120 @@ __global__ void __launch_bounds__(kThreads) window_kernel(
     const int32_t* __restrict__ offsets,
     const int32_t* __restrict__ pos,      // (D*C, V)
     const int16_t* __restrict__ sub12,    // (D*C, V): sub1 | sub2 << 8
-    const int32_t* __restrict__ grid,     // (D*C, Vg): pos[:, ::SP]
+    const int32_t* __restrict__ first,    // (D*C, NB1): #{pos < j << kBK}
     const int32_t* __restrict__ counts,   // (D*C,)
-    int D, int C, int V, int Vg, int SP,
+    int D, int C, int V, int NB1,
     const int32_t* __restrict__ donor, const int32_t* __restrict__ chrom,
     const int32_t* __restrict__ start, int L, int K,
     int8_t* __restrict__ hap1, int8_t* __restrict__ hap2,
     int32_t* __restrict__ n_variants, int32_t* __restrict__ overflow) {
+  static_assert(kMaxK <= kThreads, "a dense row's applied variants take one thread each");
+  __shared__ __align__(16) int8_t planes[2][kPlane];
   __shared__ int2 red[kThreads / 32];
-  __shared__ int s_rel[kMaxK];
-  __shared__ int8_t s_sub1[kMaxK];
-  __shared__ int8_t s_sub2[kMaxK];
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  // out-of-range indices clamp, as the plain version (and a JAX gather) does
+
+  // trip 1: the window's indices; out-of-range indices clamp, as the plain
+  // version (and a JAX gather) does
   const int d = min(max(donor[b], 0), D - 1);
   const int c = min(max(chrom[b], 0), C - 1);
   const int s = start[b];
   const long long row = (long long)d * C + c;
-  const int count = counts[row];
-  long long flat = (long long)offsets[c] + s;
-  flat = min(max(flat, 0LL), G - L);
   const long long s_end = (long long)s + L;
+  const int nb = NB1 - 1;
+  const int ja = min(max(s, 0) >> kBK, nb);
+  const long long je = max(((s_end - 1) >> kBK) + 1, 0LL);
 
-  // level 1: buckets of the coarse grid below s and below s + L
-  const int32_t* grow = grid + row * Vg;
-  int blo = 0, bhi = 0;
-  for (int j = tid; j < Vg; j += kThreads) {
-    const int g = grow[j];
-    blo += g < s;
-    bhi += g < s_end;
-  }
-  const int2 bk = block_sum2(blo, bhi, red);
-  // every position before lo0 is < s, and every one from lo0 + SP on is
-  // >= s (rows are sorted); the same holds for hi0 and s + L
-  const long long lo0 = (long long)max(bk.x - 1, 0) * SP;
-  const long long hi0 = (long long)max(bk.y - 1, 0) * SP;
+  // trip 2: four independent loads
+  const int32_t* frow = first + row * NB1;
+  const int count = counts[row];
+  const int off = offsets[c];
+  const int fa = frow[ja];
+  const int fe = je <= nb ? frow[je] : INT_MAX;
 
-  // level 2: count inside one chunk of SP positions each
+  // the slice [a, e) of the row: entries before a are < s (a negative start
+  // has none before it), entries from e to the count are >= s + L
+  const int cnt = min(max(count, 0), V);
+  const int a = s < 0 ? 0 : min(fa, cnt);
+  const int e = max(a, min(fe, cnt));
+  long long flat = (long long)off + s;
+  flat = min(max(flat, 0LL), G - L);
+
+  // trip 3: the genome window's copy first, then the slice, in flight together
+  int head = stage_tile(planes, genome, G, flat, min(L, kTile));
   const int32_t* prow = pos + row * V;
-  int clo = 0, chi = 0;
-  for (int j = tid; j < SP; j += kThreads) {
-    if (lo0 + j < V) clo += prow[lo0 + j] < s;
-    if (hi0 + j < V) chi += prow[hi0 + j] < s_end;
+  const int16_t* srow = sub12 + row * V;
+  const int n = e - a;
+  const bool mine = tid < n;
+  int p = 0, pn = 0, v = 0;
+  if (mine) {
+    p = prow[a + tid];
+    v = srow[a + tid];
+    if (tid + 1 < n) pn = prow[a + tid + 1];
   }
-  const int2 cc = block_sum2(clo, chi, red);
-  const long long lo = lo0 + cc.x;
-  const long long hi = hi0 + cc.y;
-  const int n_in = (int)max(min(hi, (long long)count) - min(lo, (long long)count), 0LL);
+  int clo = mine && p < s;
+  int chi = mine && p < s_end;
+  for (int k = tid + kThreads; k < n; k += kThreads) {  // dense rows: the rest of the slice
+    const int q = prow[a + k];
+    clo += q < s;
+    chi += q < s_end;
+  }
+
+  // lo and hi in one block reduction; the barrier also publishes the planes
+  clo = warp_sum(clo);
+  chi = warp_sum(chi);
+  if ((tid & 31) == 0) red[tid >> 5] = make_int2(clo, chi);
+  cp_async_wait_all();
+  __syncthreads();
+  int2 t = make_int2(0, 0);
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    t.x += red[w].x;
+    t.y += red[w].y;
+  }
+  // lo and hi here are already min(., count)
+  const int lo = a + t.x;
+  const int hi = a + t.y;
+  const int n_in = max(hi - lo, 0);
   const int n_apply = min(n_in, K);
 
-  // stage the applied variants: lo + k < min(hi, count) <= V for k < n_apply
-  if (tid < n_apply) {
-    s_rel[tid] = prow[lo + tid] - s;
-    const int v = sub12[row * V + lo + tid];
-    s_sub1[tid] = (int8_t)(v & 0xFF);
-    s_sub2[tid] = (int8_t)((v >> 8) & 0xFF);
+  // this thread's applied variant i, if any: from the slice it holds, or
+  // loaded again for a dense row (i = tid < n_apply <= kMaxK <= kThreads)
+  int i;
+  bool has;
+  if (n > kThreads) {
+    i = tid;
+    has = tid < n_apply;
+    if (has) {
+      p = prow[lo + tid];
+      v = srow[lo + tid];
+      if (tid + 1 < n_apply) pn = prow[lo + tid + 1];
+    }
+  } else {
+    i = a + tid - lo;
+    has = mine && i >= 0 && i < n_apply;
   }
-  __syncthreads();
+  // the last applied variant at its position writes, at rel = p - s in [0, L)
+  const bool writes = has && (i + 1 == n_apply || pn != p);
+  const int rel = writes ? p - s : -1;
 
-  const int8_t* win = genome + flat;
   int8_t* out1 = hap1 + (long long)b * L;
   int8_t* out2 = hap2 + (long long)b * L;
-  for (int j = tid; j < L; j += kThreads) {
-    int8_t h1 = win[j];
-    int8_t h2 = h1;
-    for (int k = 0; k < n_apply; ++k) {
-      if (s_rel[k] == j) {  // in order: the last matching variant wins
-        h1 = s_sub1[k];
-        h2 = s_sub2[k];
-      }
+  for (int t0 = 0; t0 < L; t0 += kTile) {
+    const int len = min(kTile, L - t0);
+    if (t0 > 0) {
+      __syncthreads();  // the last tile's stores are done with the planes
+      head = stage_tile(planes, genome, G, flat + t0, len);
+      cp_async_wait_all();
+      __syncthreads();
     }
-    out1[j] = h1;
-    out2[j] = h2;
+    if (writes && rel >= t0 && rel - t0 < len) {
+      planes[0][head + rel - t0] = static_cast<int8_t>(v & 0xFF);
+      planes[1][head + rel - t0] = static_cast<int8_t>(v >> 8);
+    }
+    __syncthreads();
+    store_tile(planes, head, out1 + t0, out2 + t0, len);
   }
   if (tid == 0) {
     n_variants[b] = n_in;
@@ -155,19 +267,23 @@ __global__ void __launch_bounds__(kThreads) window_kernel(
 
 extern "C" {
 
+// The bucket width the kernel searches with, log2 in bp; the wrapper holds
+// the table it is given to it.
+int hh_window_bucket_bits() { return kBK; }
+
 // Launches the kernel on `stream` for B windows; returns cudaGetLastError().
 int hh_window_encode(const int8_t* genome, long long G, const int32_t* offsets,
                      const int32_t* pos, const int16_t* sub12,
-                     const int32_t* grid, const int32_t* counts, int D, int C,
-                     int V, int Vg, int SP, const int32_t* donor,
-                     const int32_t* chrom, const int32_t* start, int B, int L,
-                     int K, int8_t* hap1, int8_t* hap2, int32_t* n_variants,
-                     int32_t* overflow, void* stream) {
+                     const int32_t* first, const int32_t* counts, int D, int C,
+                     int V, int NB1, const int32_t* donor, const int32_t* chrom,
+                     const int32_t* start, int B, int L, int K, int8_t* hap1,
+                     int8_t* hap2, int32_t* n_variants, int32_t* overflow,
+                     void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (K < 1 || K > kMaxK || L < 1 || G < L) return (int)cudaErrorInvalidValue;
+  if (K < 1 || K > kMaxK || L < 1 || G < L || NB1 < 1) return (int)cudaErrorInvalidValue;
   window_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
-      genome, G, offsets, pos, sub12, grid, counts, D, C, V, Vg, SP, donor,
-      chrom, start, L, K, hap1, hap2, n_variants, overflow);
+      genome, G, offsets, pos, sub12, first, counts, D, C, V, NB1, donor, chrom,
+      start, L, K, hap1, hap2, n_variants, overflow);
   return (int)cudaGetLastError();
 }
 

@@ -6,9 +6,12 @@ launch of ``csrc/window_kernel.cu`` per batch.  It replaces the JAX package's
 Pallas kernel ``haplohyped_tpu/ops/pallas_window.py::_window_kernel``.
 
 :func:`build_window_index` prepares, once per dataset and with torch ops on
-the device, what the kernel reads besides the genome and cohort tensors: the
+the device, what the kernels read besides the genome and cohort tensors: the
 packed substitution codes ``sub12 = sub1 | sub2 << 8`` (phase selection does
-not depend on the window) and the coarse search grid ``pos[..., ::SP]``.
+not depend on the window), the bucket table ``first`` that the window kernel
+searches with (:func:`bucket_table`), and the coarse grid ``pos[..., ::SP]``
+that the window-kernel lab searches with.  :func:`window_bounds` is a plain
+model of the window kernel's search, for tests and ``chip_smoke.py``.
 
 On a CPU tensor the wrapper runs the plain version.  On a CUDA tensor it
 launches the kernel or raises; it never falls back.
@@ -22,17 +25,22 @@ from typing import NamedTuple
 
 import torch
 
+from haplohyped_tpu_torch.core.constants import INT32_MAX
 from haplohyped_tpu_torch.ops import _build
 from haplohyped_tpu_torch.ops.haplotype_window import (
     HaplotypeWindows,
     encode_haplotype_windows,
 )
 
-#: coarse-grid stride: the kernel's first search level reads pos[row, ::SP],
-#: its second one chunk of SP positions
+#: coarse-grid stride of the lab kernel's search: its first level reads
+#: pos[row, ::SP], its second one chunk of SP positions
 SP = 512
 
-#: the kernel stages at most this many applied variants per window
+#: log2 of the bucket width in bp: first[d, c, j] = #{pos[d, c] < j << BK};
+#: the kernel's kBK, held against it when the library loads
+BK = 12
+
+#: the kernel applies at most this many variants per window
 K_MAX = 128
 
 
@@ -49,6 +57,7 @@ class WindowIndex(NamedTuple):
     counts: torch.Tensor  # (D, C) int32
     sub12: torch.Tensor  # (D, C, V) int16 — sub1 | sub2 << 8
     grid: torch.Tensor  # (D, C, ceil(V / SP)) int32 — pos[..., ::SP]
+    first: torch.Tensor  # (D, C, NB + 1) int32 — #{pos[d, c] < j << BK}
 
     @property
     def plain_args(self) -> tuple:
@@ -57,8 +66,29 @@ class WindowIndex(NamedTuple):
                 self.p1, self.p2, self.counts)
 
 
+def bucket_table(pos: torch.Tensor, counts: torch.Tensor, bk: int = BK) -> torch.Tensor:
+    """``first[d, c, j] = #{pos[d, c] < j << bk}`` for ``j`` in ``[0, NB]``,
+    (D, C, NB + 1) int32, with one batched ``searchsorted`` on the device.
+
+    ``NB = (P >> bk) + 1`` for ``P`` the largest position a row's count
+    covers (0 buckets if none), capped so that ``NB << bk`` fits in int32.
+    The kernel is right for any ``NB``: a start past the table searches to
+    the row's count.  One device sync."""
+    if not 0 <= bk <= 30:
+        raise ValueError(f"bk={bk} outside [0, 30]")
+    D, C, V = pos.shape
+    rows = pos.reshape(D * C, V)
+    last = rows.gather(1, (counts.reshape(D * C, 1).long() - 1).clamp(0, V - 1))[:, 0]
+    last = torch.where((counts.reshape(-1) > 0) & (last < INT32_MAX), last, -1)
+    top = int(last.max()) if last.numel() else -1
+    nb = min((top >> bk) + 1, INT32_MAX >> bk) if top >= 0 else 0
+    starts = torch.arange(nb + 1, dtype=torch.int32, device=pos.device) << bk
+    first = torch.searchsorted(rows, starts.expand(D * C, nb + 1).contiguous(), out_int32=True)
+    return first.reshape(D, C, nb + 1)
+
+
 def build_window_index(genome, offsets, pos, ref, alt, p1, p2, counts) -> WindowIndex:
-    """Build the kernel's index with torch ops on the tensors' device.
+    """Build the kernels' index with torch ops on the tensors' device.
 
     Checks once (one device sync) that REF/ALT codes lie in [0, 128), so the
     packed ``sub12`` holds both codes exactly."""
@@ -72,7 +102,8 @@ def build_window_index(genome, offsets, pos, ref, alt, p1, p2, counts) -> Window
     sub12 = sub1 | (sub2 << 8)
     del sub1, sub2
     grid = pos[..., ::SP].contiguous()
-    return WindowIndex(genome, offsets, pos, ref, alt, p1, p2, counts, sub12, grid)
+    first = bucket_table(pos, counts)
+    return WindowIndex(genome, offsets, pos, ref, alt, p1, p2, counts, sub12, grid, first)
 
 
 def _check(index: WindowIndex, donor_idx, chrom_idx, start, L: int, K: int, sp: int = SP):
@@ -81,6 +112,7 @@ def _check(index: WindowIndex, donor_idx, chrom_idx, start, L: int, K: int, sp: 
     want = {
         "genome": torch.int8, "offsets": torch.int32, "pos": torch.int32,
         "counts": torch.int32, "sub12": torch.int16, "grid": torch.int32,
+        "first": torch.int32,
     }
     tensors = {name: getattr(index, name) for name in want}
     tensors.update(donor_idx=donor_idx, chrom_idx=chrom_idx, start=start)
@@ -101,6 +133,10 @@ def _check(index: WindowIndex, donor_idx, chrom_idx, start, L: int, K: int, sp: 
         raise ValueError("sub12/counts shapes do not match pos")
     if index.grid.shape != (D, C, -(-V // sp)) or index.offsets.shape != (C,):
         raise ValueError("grid/offsets shapes do not match pos")
+    if (index.first.dim() != 3 or index.first.shape[:2] != (D, C)
+            or not 1 <= index.first.shape[2] <= (INT32_MAX >> BK) + 1):
+        raise ValueError(f"first must be (D, C, NB + 1) with NB << BK in int32, "
+                         f"got {tuple(index.first.shape)}")
     if donor_idx.shape != (B,) or chrom_idx.shape != (B,):
         raise ValueError("donor_idx and chrom_idx must be (B,), like start")
     if not 1 <= K <= K_MAX:
@@ -116,12 +152,16 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_kernel("window_kernel")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hh_window_encode.argtypes = [
-        p, ctypes.c_longlong, p, p, p, p, p, i, i, i, i, i,
+        p, ctypes.c_longlong, p, p, p, p, p, i, i, i, i,
         p, p, p, i, i, i, p, p, p, p, p,
     ]
     lib.hh_window_encode.restype = ctypes.c_int
     lib.hh_cuda_error_string.argtypes = [ctypes.c_int]
     lib.hh_cuda_error_string.restype = ctypes.c_char_p
+    lib.hh_window_bucket_bits.restype = ctypes.c_int
+    if lib.hh_window_bucket_bits() != BK:
+        raise RuntimeError(f"window kernel searches buckets of 2^{lib.hh_window_bucket_bits()} "
+                           f"bp, the index's are 2^{BK}")
     return lib
 
 
@@ -146,30 +186,66 @@ def encode_windows_kernel(
     _check(index, donor_idx, chrom_idx, start, L, K)
     D, C, V = index.pos.shape
     B = start.shape[0]
-    hap1 = torch.empty((B, L), dtype=torch.int8, device=start.device)
-    hap2 = torch.empty((B, L), dtype=torch.int8, device=start.device)
-    n_variants = torch.empty((B,), dtype=torch.int32, device=start.device)
-    overflow = torch.empty((B,), dtype=torch.int32, device=start.device)
+    haps = torch.empty((2, B, L), dtype=torch.int8, device=start.device)
+    tallies = torch.empty((2, B), dtype=torch.int32, device=start.device)
+    out = HaplotypeWindows(haps[0], haps[1], tallies[0], tallies[1])
     if B == 0:
-        return HaplotypeWindows(hap1, hap2, n_variants, overflow)
+        return out
     lib = _library()
     with torch.cuda.device(start.device):
         stream = torch.cuda.current_stream(start.device).cuda_stream
         rc = lib.hh_window_encode(
             index.genome.data_ptr(), index.genome.shape[0],
             index.offsets.data_ptr(), index.pos.data_ptr(),
-            index.sub12.data_ptr(), index.grid.data_ptr(),
-            index.counts.data_ptr(), D, C, V, index.grid.shape[2], SP,
+            index.sub12.data_ptr(), index.first.data_ptr(),
+            index.counts.data_ptr(), D, C, V, index.first.shape[2],
             donor_idx.data_ptr(), chrom_idx.data_ptr(), start.data_ptr(),
-            B, L, K, hap1.data_ptr(), hap2.data_ptr(),
-            n_variants.data_ptr(), overflow.data_ptr(), stream,
+            B, L, K, out.hap1.data_ptr(), out.hap2.data_ptr(),
+            out.n_variants.data_ptr(), out.overflow.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"window kernel launch failed: {lib.hh_cuda_error_string(rc).decode()}"
         )
     encode_windows_kernel.launches += 1
-    return HaplotypeWindows(hap1, hap2, n_variants, overflow)
+    return out
 
 
 encode_windows_kernel.launches = 0
+
+
+def window_slice(index: WindowIndex, donor_idx, chrom_idx, start, L: int):
+    """``(a, e)``, (B,) int64: the slice of each window's row that the
+    kernel reads, from two entries of ``index.first``.  Every position before
+    ``a`` is < start, every one from ``e`` to the row's count >= start + L."""
+    D, C, V = index.pos.shape
+    nb = index.first.shape[2] - 1
+    d = donor_idx.long().clamp(0, D - 1)
+    c = chrom_idx.long().clamp(0, C - 1)
+    s = start.long()
+    row = d * C + c
+    first = index.first.reshape(D * C, nb + 1)
+    fa = first[row, (s.clamp(min=0) >> BK).clamp(max=nb)].long()
+    je = (((s + L - 1) >> BK) + 1).clamp(min=0)
+    fe = torch.where(je <= nb, first[row, je.clamp(max=nb)].long(), INT32_MAX)
+    cnt = index.counts.reshape(D * C)[row].long().clamp(0, V)
+    a = torch.where(s < 0, 0, torch.minimum(fa, cnt))
+    return a, torch.maximum(a, torch.minimum(fe, cnt))
+
+
+def window_bounds(index: WindowIndex, donor_idx, chrom_idx, start, L: int):
+    """``(lo, hi)``, (B,) int64: the kernel's search as plain torch ops.
+    ``lo``/``hi`` count the positions < start / < start + L within the row's
+    count, by counting inside :func:`window_slice`; ``hi - lo`` is the
+    window's ``n_variants``.  One device sync (the longest slice)."""
+    D, C, V = index.pos.shape
+    a, e = window_slice(index, donor_idx, chrom_idx, start, L)
+    row = donor_idx.long().clamp(0, D - 1) * C + chrom_idx.long().clamp(0, C - 1)
+    width = int((e - a).max()) if a.numel() else 0
+    j = a[:, None] + torch.arange(width, device=a.device)
+    inside = j < e[:, None]
+    p = index.pos.reshape(-1)[row[:, None] * V + j.clamp(max=V - 1)].long()
+    s = start.long()[:, None]
+    lo = a + ((p < s) & inside).sum(dim=1)
+    hi = a + ((p < s + L) & inside).sum(dim=1)
+    return lo, hi
