@@ -58,17 +58,19 @@ Phases (any failure exits non-zero; nothing is caught):
    reading beside), their bounds, the per-donor task split into framing,
    h2d, kernel, d2h, unpack and struct assembly, and records/s.
 11. The window-kernel lab's kernel against its plain versions, bit-equal:
-   ``full``, ``dma_only`` (coarse grid at 512 and 1024) and
-   ``compute_only``, each at 1, 8 and 32 windows a block, on the edge
-   fixtures and on the deployment state at B in {1, 61, 64, 2048} x K in
-   {128, 64} (L=1000) and L in {256, 4080} (B=64); every w bit-equal to
-   w=1.
+   ``full``, ``dma_only`` (grid stride 512 and 1024) and ``compute_only``,
+   each at 1, 2, 4, 8, 16 and 32 windows a block, on the edge fixtures and
+   on the deployment state at B in {1, 61, 64, 2048} x K in {128, 64}
+   (L=1000) and L in {256, 4080} (B=64); every w bit-equal to w=1.  Phase 1
+   prints each lab instance's registers, shared memory and spills.
 12. The lab's path: ``window_kernel_lab.main`` on the JAX lab's fixture at
    its shape (B=2048, L=1000, K=64, 16 chained links in one CUDA graph),
    then the same rows on the deployment state's chr1 at B=2048 and B=64,
    with the lab kernel's launch count set to 0 just before and read just
-   after; each row's device ms a launch (CUDA events) and bound, and the
-   plain version's time at the lab shape.
+   after; each row's device ms a launch (CUDA events) and bound, the
+   plain version's time at the lab shape, and ``full_w1 / prod`` for each
+   state, which must not exceed 1.25 (the lab's ``full`` at one window a
+   block is the production kernel's code).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -81,6 +83,7 @@ import functools
 import importlib.util
 import json
 import os
+import re
 import struct
 import sys
 import tempfile
@@ -117,17 +120,18 @@ from haplohyped_tpu_torch.ops.vcf_decode import (
 )
 from haplohyped_tpu_torch.ops.window_kernel import (
     BK,
-    SP,
     build_window_index,
     encode_windows_kernel,
     window_bounds,
     window_slice,
 )
 from haplohyped_tpu_torch.ops.window_lab import (
+    SP,
     VARIANTS,
+    WINDOWS_PER_BLOCK,
     encode_windows_lab,
-    lab_index,
     lab_plain,
+    lab_smem_bytes,
 )
 from haplohyped_tpu_torch.pipeline.records import snp_struct_from_frames12
 from haplohyped_tpu_torch.pipeline.vcf_to_h5 import VCFtoHDF5Converter
@@ -531,8 +535,9 @@ def window_times(card: str, index, batches, n_plain: int, cmp: "Comparisons") ->
 
     outs = [kern(*x) for x in batches]
     slices = [window_slice(index, *x, L) for x in batches]
-    bound = bound_bytes(slices, outs, L, K)
-    ms_bound = bound["bytes"] / len(batches) / HBM_BYTES_PER_S * 1e3
+    n_apply = [o.n_variants.clamp(max=K) for o in outs]
+    bound = lab.bound_bytes("prod", slices, n_apply, L)
+    ms_bound = lab.bound_ms("prod", slices, n_apply, L)
     for (d, c, s), out in zip(batches[:4], outs[:4]):
         cmp.windows(out, plain(d, c, s), f"timed batch B={B}")
     lo, hi = window_bounds(index, *batches[0], L)
@@ -559,28 +564,6 @@ def window_times(card: str, index, batches, n_plain: int, cmp: "Comparisons") ->
         f"{_ms_text(prof_floor, 'ms/call')} device busy (profiler), "
         f"{host_floor:.5f} ms/call host time")
     return {"ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": ms_bound}
-
-
-def bound_bytes(slices, outs, L, K) -> dict:
-    """The bytes the window encode must move for the given batches, with
-    each byte read once and written once: per window (donor, chrom, start)
-    12 B, offset and count 8 B, the two bucket-table entries that bound its
-    slice of the row 8 B, L genome bytes, 6 B (position, packed codes) per
-    applied variant, 4 B per other position of the slice (at most two binary
-    searches of it, 2 ceil(log2(n + 1)) probes), and 2L + 8 B of output.
-    Returns the total, its search part (table entries and other positions)
-    and the applied variants."""
-    total = search = applied = 0.0
-    for (a, e), out in zip(slices, outs):
-        n = (e - a).double()
-        n_apply = out.n_variants.clamp(max=K).double()
-        other = torch.minimum(n - n_apply, 2 * torch.ceil(torch.log2(n + 1)))
-        B = n.numel()
-        s = 8 * B + 4 * float(other.sum())
-        applied += float(n_apply.sum())
-        search += s
-        total += B * (12 + 8 + L + 2 * L + 8) + s + 6 * float(n_apply.sum())
-    return {"bytes": total, "search": search, "applied": applied}
 
 
 # ---------------------------------------------------------------------------
@@ -943,20 +926,35 @@ def decode_times(card: str, ctx: dict, f12, f64) -> dict:
 # phases 11-12: the window-kernel lab
 # ---------------------------------------------------------------------------
 
-#: the lab variants phase 11 checks, each with its coarse-grid stride
+#: the lab variants phase 11 checks, each with dma_only's grid stride
 LAB_CONFIGS = (("full", SP), ("dma_only", SP), ("dma_only", 1024), ("compute_only", SP))
 
 
+def lab_ptxas(text: str) -> dict:
+    """``{"<variant>_w<w>": (registers and shared memory, spills)}`` of each
+    lab kernel instance, from ``ptxas -v``'s output for
+    ``csrc/window_kernel_lab.cu``."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"lab_kernelILi(\d)ELi(\d+)EE", line)
+        if "Compiling entry" in line and m:
+            cur = f"{VARIANTS[int(m[1])]}_w{m[2]}"
+            out[cur] = ["", ""]
+        elif cur and "spill" in line:
+            out[cur][1] = line.strip()
+        elif cur and "registers" in line:
+            out[cur][0] = line.split(":", 1)[1].strip()
+    return out
+
+
 def lab_compare(index, draws, L, K, cmp: Comparisons, what: str) -> None:
-    """Every lab variant at every w of ``lab.LAB_WS`` bit-equal to its plain
-    version on ``draws``, and every w bit-equal to w = 1."""
-    indices = {sp: lab_index(index, sp) for sp in {sp for _, sp in LAB_CONFIGS}}
+    """Every lab variant at every w of ``WINDOWS_PER_BLOCK`` bit-equal to its
+    plain version on ``draws``, and every w bit-equal to w = 1."""
     for variant, sp in LAB_CONFIGS:
-        idx = indices[sp]
-        want = lab_plain(idx, *draws, L=L, K=K, variant=variant, sp=sp)
+        want = lab_plain(index, *draws, L=L, K=K, variant=variant, sp=sp)
         at_w1 = None
-        for w in lab.LAB_WS:
-            got = encode_windows_lab(idx, *draws, L=L, K=K, variant=variant, w=w, sp=sp)
+        for w in WINDOWS_PER_BLOCK:
+            got = encode_windows_lab(index, *draws, L=L, K=K, variant=variant, w=w, sp=sp)
             cmp.windows(got, want, f"lab {variant} sp={sp} w={w} {what}")
             at_w1 = at_w1 or got
             check(all(torch.equal(a, b) for a, b in zip(got, at_w1)),
@@ -977,8 +975,9 @@ def lab_checks(sampler, seed: int, cmp: Comparisons) -> None:
         lab_compare(sampler.index, random_draws(sampler, B, L, gen), L, K, cmp,
                     f"B={B} L={L} K={K}")
     log(f"lab checks: {cmp.count} lab kernel/plain comparisons bit-equal ({VARIANTS} x w in "
-        f"{lab.LAB_WS}, dma_only at sp 512 and 1024; edge fixtures and B in {{1, 61, 64, 2048}} x "
-        f"K in {{128, 64}} at L=1000, L in {{256, 4080}} at B=64); every w equal to w=1")
+        f"{WINDOWS_PER_BLOCK}, dma_only at sp 512 and 1024; edge fixtures and B in "
+        f"{{1, 61, 64, 2048}} x K in {{128, 64}} at L=1000, L in {{256, 4080}} at B=64); every w "
+        f"equal to w=1")
 
 
 def lab_path(card: str, seed: int, sampler, cmp: Comparisons) -> dict:
@@ -987,7 +986,8 @@ def lab_path(card: str, seed: int, sampler, cmp: Comparisons) -> dict:
     at the same shape and at the main path's B, with the lab kernel's launch
     count set to 0 just before and read just after.  Returns the numbers of
     the ``kernels`` line: launches, and ``full_w1``'s device ms, plain ms and
-    bound at the lab shape."""
+    bound at the lab shape.  Fails where ``full_w1`` takes more than 1.25
+    times ``prod`` on any of the three states."""
     dev = sampler.device
     encode_windows_lab.launches = 0
     t0 = time.perf_counter()
@@ -1008,6 +1008,13 @@ def lab_path(card: str, seed: int, sampler, cmp: Comparisons) -> dict:
                 f"to back), {r['device_windows_per_sec']:,.0f} windows/s on the device, bound "
                 f"{r['bound_ms']:.6f} ms (bytes, 3.35 TB/s); chained {r['median_s']:.6f} s a "
                 f"call, {r['windows_per_sec']:,.0f} windows/s (host clock)")
+    for title, rows in runs.items():
+        ms = {r["name"]: r["device_ms_per_launch"] for r in rows}
+        ratio = ms["full_w1"] / ms["prod"]
+        log(f"[{card}] lab {title}: full_w1 / prod = {ms['full_w1']:.6f} / {ms['prod']:.6f} "
+            f"= {ratio:.4f}; dma_only_w1 {ms['dma_only_w1'] / ms['full_w1']:.4f} and "
+            f"compute_only_w1 {ms['compute_only_w1'] / ms['full_w1']:.4f} of full_w1")
+        check(ratio <= 1.25, f"lab {title}: full_w1 takes {ratio:.3f} x prod (limit 1.25)")
 
     # full_w1 against its plain version at the lab shape, and the plain time
     index, Lc, D = lab.build_fixture(device=dev)
@@ -1041,9 +1048,16 @@ def main() -> int:
     logs = _build.build_kernels()
     log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
+        if name == "window_kernel_lab":
+            continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    for inst, (used, spill) in lab_ptxas(logs["window_kernel_lab"]).items():
+        w = int(inst.rsplit("_w", 1)[1])
+        log(f"  ptxas window_kernel_lab {inst}: {used}; dynamic shared memory "
+            f"{lab_smem_bytes(w, SEQ_LENGTH)} B at L={SEQ_LENGTH}, {lab_smem_bytes(w, 4080)} B "
+            f"at L=4080; {spill}")
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1077,11 +1091,11 @@ def main() -> int:
     torch.cuda.synchronize()
     main_launches = encode_windows_kernel.launches
     first = sampler.index.first
-    index_bytes = sampler.index.sub12.nbytes + sampler.index.grid.nbytes + first.nbytes
+    index_bytes = sampler.index.sub12.nbytes + first.nbytes
     log(f"main path: sampler construction (index build) {t1 - t0:.3f} s, "
         f"{(torch.cuda.memory_allocated() - mem0) / 2**30:.3f} GiB more allocated "
         f"(index {index_bytes / 2**30:.3f} GiB: sub12 {sampler.index.sub12.nbytes / 2**30:.3f}, "
-        f"grid {sampler.index.grid.nbytes / 2**30:.3f}, bucket table first "
+        f"bucket table first "
         f"{tuple(first.shape)} at BK={BK} {first.nbytes / 2**30:.3f} GiB); "
         f"3 x sample() + sample_many(16) "
         f"{time.perf_counter() - t1:.3f} s; kernel launches {main_launches}; "

@@ -52,90 +52,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "window_common.cuh"
+
 namespace {
 
-constexpr int kMaxK = 128;
-// threads a block: at 40 registers a thread, 256 would leave room for 6
-// blocks an SM, and a batch of 1,024 windows would take two waves on 132 SMs
-constexpr int kThreads = 128;
-constexpr int kBK = 12;              // log2 of the bucket width in bp
-constexpr int kTile = 2048;          // window bytes staged at once
-constexpr int kPlane = kTile + 32;   // a tile's aligned superset + one word of over-read
-
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(dst), "l"(__cvta_generic_to_global(gmem)) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Starts copying genome bytes [lo, lo + len) into both planes; byte j of the
-// range lands at plane offset head + j, where head = (address of lo) & 15.
-// Chunks of 16 bytes inside [0, G) go by cp.async; a chunk that straddles
-// the genome's ends goes byte by byte.  Returns head.
-__device__ __forceinline__ int stage_tile(int8_t (*planes)[kPlane], const int8_t* genome,
-                                          long long G, long long lo, int len) {
-  const int head = static_cast<int>(reinterpret_cast<uintptr_t>(genome + lo) & 15);
-  const long long base = lo - head;
-  const int nch = (head + len + 15) >> 4;
-  for (int i = threadIdx.x; i < 2 * nch; i += kThreads) {
-    const int pl = i >= nch;
-    const int ch = i - pl * nch;
-    const long long g = base + 16LL * ch;
-    int8_t* dst = planes[pl] + 16 * ch;
-    if (g >= 0 && g + 16 <= G) {
-      cp_async16(dst, genome + g);
-    } else {
-      for (int x = 0; x < 16; ++x)
-        if (g + x >= 0 && g + x < G) dst[x] = genome[g + x];
-    }
-  }
-  return head;
-}
-
-// Stores plane bytes [head, head + n) of both planes to out1 and out2:
-// 16-byte stores where a 16-byte-aligned chunk of the output lies inside the
-// row, byte stores for the ragged head and tail.
-__device__ __forceinline__ void store_tile(int8_t (*planes)[kPlane], int head,
-                                           int8_t* out1, int8_t* out2, int n) {
-  const int h1 = static_cast<int>(reinterpret_cast<uintptr_t>(out1) & 15);
-  const int h2 = static_cast<int>(reinterpret_cast<uintptr_t>(out2) & 15);
-  const int n1 = (h1 + n + 15) >> 4;
-  const int n2 = (h2 + n + 15) >> 4;
-  for (int i = threadIdx.x; i < n1 + n2; i += kThreads) {
-    const int pl = i >= n1;
-    const int ch = pl ? i - n1 : i;
-    const int oh = pl ? h2 : h1;
-    int8_t* dst = (pl ? out2 : out1) - oh + 16 * ch;
-    const int j0 = 16 * ch - oh;  // row byte of the chunk's first byte
-    if (j0 >= 0 && j0 + 16 <= n) {
-      // plane bytes q .. q + 15 from five aligned words and funnel shifts
-      const int q = head + j0;
-      const uint32_t* w = reinterpret_cast<const uint32_t*>(planes[pl] + (q & ~3));
-      const unsigned sh = (q & 3) * 8;
-      uint4 r;
-      r.x = __funnelshift_r(w[0], w[1], sh);
-      r.y = __funnelshift_r(w[1], w[2], sh);
-      r.z = __funnelshift_r(w[2], w[3], sh);
-      r.w = __funnelshift_r(w[3], w[4], sh);
-      *reinterpret_cast<uint4*>(dst) = r;
-    } else {
-      const int8_t* src = planes[pl] + head;
-      for (int x = 0; x < 16; ++x) {
-        const int j = j0 + x;
-        if (j >= 0 && j < n) dst[x] = src[j];
-      }
-    }
-  }
-}
+using namespace hh_window;
 
 __global__ void __launch_bounds__(kThreads) window_kernel(
     const int8_t* __restrict__ genome, long long G,
@@ -151,6 +72,7 @@ __global__ void __launch_bounds__(kThreads) window_kernel(
     int32_t* __restrict__ n_variants, int32_t* __restrict__ overflow) {
   static_assert(kMaxK <= kThreads, "a dense row's applied variants take one thread each");
   __shared__ __align__(16) int8_t planes[2][kPlane];
+  int8_t* const pl0 = &planes[0][0];
   __shared__ int2 red[kThreads / 32];
 
   const int b = blockIdx.x;
@@ -183,7 +105,7 @@ __global__ void __launch_bounds__(kThreads) window_kernel(
   flat = min(max(flat, 0LL), G - L);
 
   // trip 3: the genome window's copy first, then the slice, in flight together
-  int head = stage_tile(planes, genome, G, flat, min(L, kTile));
+  int head = stage_tile<kThreads>(pl0, kPlane, genome, G, flat, min(L, kTile), tid);
   const int32_t* prow = pos + row * V;
   const int16_t* srow = sub12 + row * V;
   const int n = e - a;
@@ -246,7 +168,7 @@ __global__ void __launch_bounds__(kThreads) window_kernel(
     const int len = min(kTile, L - t0);
     if (t0 > 0) {
       __syncthreads();  // the last tile's stores are done with the planes
-      head = stage_tile(planes, genome, G, flat + t0, len);
+      head = stage_tile<kThreads>(pl0, kPlane, genome, G, flat + t0, len, tid);
       cp_async_wait_all();
       __syncthreads();
     }
@@ -255,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) window_kernel(
       planes[1][head + rel - t0] = static_cast<int8_t>(v >> 8);
     }
     __syncthreads();
-    store_tile(planes, head, out1 + t0, out2 + t0, len);
+    store_tile<kThreads>(pl0, kPlane, head, out1 + t0, out2 + t0, len, tid);
   }
   if (tid == 0) {
     n_variants[b] = n_in;

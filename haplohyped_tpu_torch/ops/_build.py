@@ -118,6 +118,12 @@ def _kernel_sources(name: str) -> list[Path]:
     return [CSRC_DIR / f"{name}.cu"]
 
 
+def _kernel_deps() -> list[Path]:
+    """The headers under ``csrc/``: every kernel's build hashes them, so an
+    edited header rebuilds the kernels that include it."""
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 @functools.cache
 def _has_libdeflate() -> bool:
     """Whether the host compiler finds libdeflate's header and library
@@ -149,7 +155,8 @@ def build_kernels() -> dict[str, str]:
     ``"hh_hostio"``."""
     nvcc = _nvcc()
     jobs = {
-        n: _start(n, _kernel_sources(n), nvcc, NVCC_FLAGS)[1] for n in kernel_names()
+        n: _start(n, _kernel_sources(n), nvcc, NVCC_FLAGS, deps=_kernel_deps())[1]
+        for n in kernel_names()
     }
     jobs["hh_hostio"] = _start_hostio()[1]
     return {n: (_finish(j) if j is not None else "") for n, j in jobs.items()}
@@ -170,5 +177,5 @@ def load_kernel(name: str) -> ctypes.CDLL:
     sources = _kernel_sources(name)
     if not sources[0].exists():
         raise FileNotFoundError(sources[0])
-    path = build_shared_library(name, sources, _nvcc(), NVCC_FLAGS)
+    path = build_shared_library(name, sources, _nvcc(), NVCC_FLAGS, deps=_kernel_deps())
     return ctypes.CDLL(str(path))

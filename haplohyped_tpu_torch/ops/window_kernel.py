@@ -9,9 +9,9 @@ Pallas kernel ``haplohyped_tpu/ops/pallas_window.py::_window_kernel``.
 the device, what the kernels read besides the genome and cohort tensors: the
 packed substitution codes ``sub12 = sub1 | sub2 << 8`` (phase selection does
 not depend on the window), the bucket table ``first`` that the window kernel
-searches with (:func:`bucket_table`), and the coarse grid ``pos[..., ::SP]``
-that the window-kernel lab searches with.  :func:`window_bounds` is a plain
-model of the window kernel's search, for tests and ``chip_smoke.py``.
+searches with (:func:`bucket_table`); the window-kernel lab reads the same
+index.  :func:`window_bounds` is a plain model of the window kernel's
+search, for tests and ``chip_smoke.py``.
 
 On a CPU tensor the wrapper runs the plain version.  On a CUDA tensor it
 launches the kernel or raises; it never falls back.
@@ -31,10 +31,6 @@ from haplohyped_tpu_torch.ops.haplotype_window import (
     HaplotypeWindows,
     encode_haplotype_windows,
 )
-
-#: coarse-grid stride of the lab kernel's search: its first level reads
-#: pos[row, ::SP], its second one chunk of SP positions
-SP = 512
 
 #: log2 of the bucket width in bp: first[d, c, j] = #{pos[d, c] < j << BK};
 #: the kernel's kBK, held against it when the library loads
@@ -56,7 +52,6 @@ class WindowIndex(NamedTuple):
     p2: torch.Tensor  # (D, C, V) int8
     counts: torch.Tensor  # (D, C) int32
     sub12: torch.Tensor  # (D, C, V) int16 — sub1 | sub2 << 8
-    grid: torch.Tensor  # (D, C, ceil(V / SP)) int32 — pos[..., ::SP]
     first: torch.Tensor  # (D, C, NB + 1) int32 — #{pos[d, c] < j << BK}
 
     @property
@@ -101,18 +96,16 @@ def build_window_index(genome, offsets, pos, ref, alt, p1, p2, counts) -> Window
     sub2 = torch.where(p2 == 1, alt, ref).to(torch.int16)
     sub12 = sub1 | (sub2 << 8)
     del sub1, sub2
-    grid = pos[..., ::SP].contiguous()
     first = bucket_table(pos, counts)
-    return WindowIndex(genome, offsets, pos, ref, alt, p1, p2, counts, sub12, grid, first)
+    return WindowIndex(genome, offsets, pos, ref, alt, p1, p2, counts, sub12, first)
 
 
-def _check(index: WindowIndex, donor_idx, chrom_idx, start, L: int, K: int, sp: int = SP):
-    """Raise on what the kernel does not take; ``sp`` is the grid's stride."""
+def _check(index: WindowIndex, donor_idx, chrom_idx, start, L: int, K: int):
+    """Raise on what the kernel does not take."""
     dev = start.device
     want = {
         "genome": torch.int8, "offsets": torch.int32, "pos": torch.int32,
-        "counts": torch.int32, "sub12": torch.int16, "grid": torch.int32,
-        "first": torch.int32,
+        "counts": torch.int32, "sub12": torch.int16, "first": torch.int32,
     }
     tensors = {name: getattr(index, name) for name in want}
     tensors.update(donor_idx=donor_idx, chrom_idx=chrom_idx, start=start)
@@ -131,8 +124,8 @@ def _check(index: WindowIndex, donor_idx, chrom_idx, start, L: int, K: int, sp: 
     G = index.genome.shape[0]
     if index.sub12.shape != (D, C, V) or index.counts.shape != (D, C):
         raise ValueError("sub12/counts shapes do not match pos")
-    if index.grid.shape != (D, C, -(-V // sp)) or index.offsets.shape != (C,):
-        raise ValueError("grid/offsets shapes do not match pos")
+    if index.offsets.shape != (C,):
+        raise ValueError("offsets shape does not match pos")
     if (index.first.dim() != 3 or index.first.shape[:2] != (D, C)
             or not 1 <= index.first.shape[2] <= (INT32_MAX >> BK) + 1):
         raise ValueError(f"first must be (D, C, NB + 1) with NB << BK in int32, "

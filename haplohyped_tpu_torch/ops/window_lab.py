@@ -4,9 +4,10 @@ switchable, on a Hopper kernel beside its plain PyTorch versions.
 It is the counterpart of the JAX package's ``tools/window_kernel_lab.py``
 (``lab_kernel_variant``, launched by ``make_variant_call``), which split the
 Pallas window kernel's time into DMA latency and compute.  Each variant is a
-template instance of ``csrc/window_kernel_lab.cu``; all three read the
-production kernel's index (:class:`~.window_kernel.WindowIndex`), with the
-coarse grid at the stride ``sp`` that :func:`lab_index` gives it.
+template instance of ``csrc/window_kernel_lab.cu``, the production kernel
+(``csrc/window_kernel.cu``, whose device code it shares) with one leg
+switched off; all three read the production kernel's index
+(:class:`~.window_kernel.WindowIndex`).
 
 - ``full``: the encode, :func:`~.haplotype_window.encode_haplotype_windows`,
   with ``sink`` 0.
@@ -14,11 +15,11 @@ coarse grid at the stride ``sp`` that :func:`lab_index` gives it.
   the clamped flat start, the window is the genome read from the
   ``sp``-word-aligned base ``4 * ((flat >> 2) // sp) * sp + (flat & 3)``;
   ``n_variants`` and ``overflow`` are ``pos`` and ``sub12`` at ``lo0 =
-  max(#{grid < start} - 1, 0) * sp``, the first entry of the chunk the
-  search reads: what the JAX lab's DMA-only variant returns.  ``sink`` is
-  the XOR of ``pos ^ sub12`` over the applied variants (those ``full``
-  applies), so the kernel's loads of them stay live.  The JAX lab has no
-  sink.
+  max(#{pos[row, ::sp] < start} - 1, 0) * sp``, the first entry of the
+  chunk of the JAX lab's coarse grid that its search reads: what the JAX
+  lab's DMA-only variant returns.  ``sink`` is the XOR of ``pos ^ sub12``
+  over the applied variants (those ``full`` applies), so the kernel's loads
+  of them stay live.  The JAX lab has no sink.
 - ``compute_only``: ``full`` on the synthetic state of
   :func:`synthetic_state`, which the kernel computes in registers where
   ``full`` loads.  The JAX lab's variant reads scratch memory that no copy
@@ -43,11 +44,14 @@ from haplohyped_tpu_torch.ops.haplotype_window import (
     _CHUNK_ELEMS,
     encode_haplotype_windows,
 )
-from haplohyped_tpu_torch.ops.window_kernel import SP, WindowIndex, _check
+from haplohyped_tpu_torch.ops.window_kernel import BK, WindowIndex, _check
 
 VARIANTS = ("full", "dma_only", "compute_only")
-#: windows per block of 256 threads the kernel takes
+#: windows per block of 128 threads the kernel takes
 WINDOWS_PER_BLOCK = (1, 2, 4, 8, 16, 32)
+#: dma_only's default grid stride: its n_variants and overflow read the row
+#: at lo0, a multiple of SP
+SP = 512
 #: compute_only: bp between synthetic variants (~1.2 SNVs per kb)
 SYNTH_STRIDE = 833
 
@@ -58,11 +62,6 @@ class LabWindows(NamedTuple):
     n_variants: torch.Tensor  # (B,) int32
     overflow: torch.Tensor  # (B,) int32
     sink: torch.Tensor  # (B,) int32 — dma_only's XOR of its applied loads, else 0
-
-
-def lab_index(index: WindowIndex, sp: int = SP) -> WindowIndex:
-    """``index`` with its coarse grid at stride ``sp``: ``pos[..., ::sp]``."""
-    return index._replace(grid=index.pos[..., ::sp].contiguous())
 
 
 def synthetic_state(index: WindowIndex) -> tuple[torch.Tensor, ...]:
@@ -97,6 +96,14 @@ def _xor_rows(x: torch.Tensor) -> torch.Tensor:
     return x[:, 0]
 
 
+def grid_lo0(pos_rows: torch.Tensor, s: torch.Tensor, sp: int) -> torch.Tensor:
+    """dma_only's ``lo0`` of each row of ``pos_rows`` (b, V) at start ``s``
+    (b,): ``max(#{pos_rows[:, ::sp] < s} - 1, 0) * sp``, counted over the
+    JAX lab's coarse grid, whole rows."""
+    blo = (pos_rows[:, ::sp] < s[:, None]).sum(dim=1)
+    return (blo - 1).clamp(min=0) * sp
+
+
 def _dma_only_chunk(index: WindowIndex, donor_idx, chrom_idx, start, L, K, sp):
     D, C, V = index.pos.shape
     dev = start.device
@@ -110,8 +117,7 @@ def _dma_only_chunk(index: WindowIndex, donor_idx, chrom_idx, start, L, K, sp):
 
     pos_rows = index.pos.reshape(D * C, V)[row]  # (b, V)
     sub_rows = index.sub12.reshape(D * C, V)[row].int()
-    blo = (index.grid.reshape(D * C, -1)[row] < s[:, None]).sum(dim=1)
-    lo0 = ((blo - 1).clamp(min=0) * sp)[:, None]
+    lo0 = grid_lo0(pos_rows, s, sp)[:, None]
     n_variants = torch.gather(pos_rows, 1, lo0)[:, 0]
     overflow = torch.gather(sub_rows, 1, lo0)[:, 0]
 
@@ -151,16 +157,34 @@ def lab_plain(index: WindowIndex, donor_idx, chrom_idx, start, *, L: int, K: int
 
 @functools.cache
 def _library() -> ctypes.CDLL:
+    """The lab kernel's library, with every instance's shared memory limit
+    raised on the current device."""
     lib = _build.load_kernel("window_kernel_lab")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hh_window_lab.argtypes = [
-        i, p, ctypes.c_longlong, p, p, p, p, p, i, i, i, i, i,
-        p, p, p, i, i, i, i, p, p, p, p, p, p,
+        i, i, p, ctypes.c_longlong, p, p, p, p, p, i, i, i, i, i,
+        p, p, p, i, i, i, p, p, p, p, p, p,
     ]
     lib.hh_window_lab.restype = ctypes.c_int
     lib.hh_lab_error_string.argtypes = [ctypes.c_int]
     lib.hh_lab_error_string.restype = ctypes.c_char_p
+    lib.hh_window_lab_smem.argtypes = [i, i]
+    for fn in (lib.hh_window_lab_smem, lib.hh_window_lab_bucket_bits, lib.hh_window_lab_init):
+        fn.restype = ctypes.c_int
+    lib.hh_window_lab_bucket_bits.argtypes = lib.hh_window_lab_init.argtypes = []
+    if lib.hh_window_lab_bucket_bits() != BK:
+        raise RuntimeError(f"lab kernel searches buckets of 2^{lib.hh_window_lab_bucket_bits()} "
+                           f"bp, the index's are 2^{BK}")
+    rc = lib.hh_window_lab_init()
+    if rc != 0:
+        raise RuntimeError(f"lab kernel set-up failed: {lib.hh_lab_error_string(rc).decode()}")
     return lib
+
+
+def lab_smem_bytes(w: int, L: int) -> int:
+    """Dynamic shared memory of a launch of the lab kernel at ``w`` windows a
+    block of ``L`` bytes, as the kernel's source computes it (needs a card)."""
+    return _library().hh_window_lab_smem(w, L)
 
 
 def encode_windows_lab(
@@ -177,7 +201,7 @@ def encode_windows_lab(
 ) -> LabWindows:
     """One lab variant over a batch of windows: the Hopper kernel, ``w``
     windows a block, for CUDA tensors; the plain version for CPU tensors.
-    ``index.grid`` must have stride ``sp`` (:func:`lab_index`).
+    ``sp``, a power of two, is ``dma_only``'s grid stride.
     ``encode_windows_lab.launches`` counts the kernel's launches."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown lab variant {variant!r}; one of {VARIANTS}")
@@ -185,7 +209,9 @@ def encode_windows_lab(
         raise ValueError(f"w={w} windows per block; one of {WINDOWS_PER_BLOCK}")
     if start.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no lab kernel for device {start.device}")
-    _check(index, donor_idx, chrom_idx, start, L, K, sp)
+    if sp < 1 or sp & (sp - 1):
+        raise ValueError(f"sp={sp} must be a power of two")
+    _check(index, donor_idx, chrom_idx, start, L, K)
     D, C, V = index.pos.shape
     if variant == "compute_only" and V * SYNTH_STRIDE >= 2**31:
         raise ValueError(f"V={V} too large for synthetic positions i * {SYNTH_STRIDE} in int32")
@@ -200,15 +226,15 @@ def encode_windows_lab(
     out = LabWindows(hap1, hap2, n_variants, overflow, sink)
     if B == 0:
         return out
-    lib = _library()
     with torch.cuda.device(dev):
+        lib = _library()
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.hh_window_lab(
-            VARIANTS.index(variant), index.genome.data_ptr(), index.genome.shape[0],
+            VARIANTS.index(variant), w, index.genome.data_ptr(), index.genome.shape[0],
             index.offsets.data_ptr(), index.pos.data_ptr(), index.sub12.data_ptr(),
-            index.grid.data_ptr(), index.counts.data_ptr(), D, C, V,
-            index.grid.shape[2], sp, donor_idx.data_ptr(), chrom_idx.data_ptr(),
-            start.data_ptr(), B, L, K, w, *(t.data_ptr() for t in out), stream,
+            index.first.data_ptr(), index.counts.data_ptr(), D, C, V,
+            index.first.shape[2], sp, donor_idx.data_ptr(), chrom_idx.data_ptr(),
+            start.data_ptr(), B, L, K, *(t.data_ptr() for t in out), stream,
         )
     if rc != 0:
         raise RuntimeError(f"lab kernel launch failed: {lib.hh_lab_error_string(rc).decode()}")

@@ -37,7 +37,6 @@ from __future__ import annotations
 import argparse
 import functools
 import json
-import math
 import sys
 import time
 
@@ -46,7 +45,11 @@ import torch
 
 from haplohyped_tpu_torch.core.config import resolve_device
 from haplohyped_tpu_torch.core.timing import HBM_BYTES_PER_S, card_line, device_ms
-from haplohyped_tpu_torch.ops.window_kernel import build_window_index, encode_windows_kernel
+from haplohyped_tpu_torch.ops.window_kernel import (
+    build_window_index,
+    encode_windows_kernel,
+    window_slice,
+)
 from haplohyped_tpu_torch.ops.window_lab import VARIANTS, encode_windows_lab
 from haplohyped_tpu_torch.tools.deployment import make_state
 
@@ -183,23 +186,47 @@ def measure(name, call, index, Lc, D, B, L, n_chain, iters=3, seed=0) -> dict:
             "us_per_window": med / (n_chain * B) * 1e6}
 
 
-def bound_ms(kind: str, B: int, L: int, V: int, n_apply: int) -> float:
-    """Least time for ``B`` windows on an H100 SXM: each byte read once and
-    written once, over 3.35 TB/s.  ``prod``, ``full`` and ``dma_only`` read,
-    per window, (donor, chrom, start) 12 B, offset and count 8 B, L genome
-    bytes, two binary searches of ceil(log2(V+1)) probes of 4 B and 6 B
-    (position, packed codes) per applied variant, and write 2L + 8 B (the lab
-    variants 4 B more: the sink); ``n_apply`` is the batch's applied
-    variants.  ``compute_only`` loads nothing it could not compute: its
-    bound is its stores alone, 2L + 12 B."""
-    if kind == "compute_only":
-        total = B * (2 * L + 12)
-    else:
-        probes = 2 * math.ceil(math.log2(V + 1)) * 4
-        total = B * (12 + 8 + L + probes + 2 * L + 8) + 6 * n_apply
+def bound_bytes(kind: str, slices, n_apply, L: int) -> dict:
+    """The bytes row ``kind`` must move for a list of batches, each byte read
+    once and written once.  ``slices`` holds each batch's ``(a, e)``, the
+    slice of the row that bounds each window's variants
+    (:func:`~haplohyped_tpu_torch.ops.window_kernel.window_slice`), and
+    ``n_apply`` each batch's applied variants a window.
+
+    ``prod``, ``full`` and ``dma_only`` read, per window, (donor, chrom,
+    start) 12 B, offset and count 8 B, the two bucket-table entries that
+    bound its slice 8 B, L genome bytes, 6 B (position, packed codes) per
+    applied variant and 4 B per other position of the slice (at most two
+    binary searches of it, 2 ceil(log2(n + 1)) probes), and write 2L + 8 B;
+    the lab's variants write 4 B more (the sink), and ``dma_only`` reads 6 B
+    more (position and codes at ``lo0``).  ``compute_only`` loads nothing it
+    could not compute: its stores alone, 2L + 12 B.  Returns the total, its
+    search part (table entries and other positions) and the applied
+    variants."""
+    total = search = applied = 0.0
+    for (a, e), k in zip(slices, n_apply):
+        B = a.numel()
+        k = k.double()
+        applied += float(k.sum())
+        if kind == "compute_only":
+            total += B * (2 * L + 12)
+            continue
+        n = (e - a).double()
+        other = torch.minimum(n - k, 2 * torch.ceil(torch.log2(n + 1)))
+        s = 8 * B + 4 * float(other.sum())
+        search += s
+        total += B * (12 + 8 + L + 2 * L + 8) + s + 6 * float(k.sum())
         if kind != "prod":
             total += 4 * B
-    return total / HBM_BYTES_PER_S * 1e3
+        if kind == "dma_only":
+            total += 6 * B
+    return {"bytes": total, "search": search, "applied": applied}
+
+
+def bound_ms(kind: str, slices, n_apply, L: int) -> float:
+    """Least time a batch for row ``kind`` on an H100 SXM, the mean over the
+    batches of :func:`bound_bytes`, over 3.35 TB/s."""
+    return bound_bytes(kind, slices, n_apply, L)["bytes"] / len(slices) / HBM_BYTES_PER_S * 1e3
 
 
 def lab_calls(L: int, K: int, ws=LAB_WS) -> dict:
@@ -221,11 +248,11 @@ def lab_rows(index, Lc: int, D: int, *, B: int = LAB_B, L: int = LAB_L, K: int =
     the CPU both are ``None``."""
     dev = index.pos.device
     cuda = dev.type == "cuda"
-    V = index.pos.shape[2]
     if cuda:
         rng = np.random.default_rng(seed + 1)
         batches = [draws(rng, Lc, D, B, L, dev) for _ in range(n_timed)]
-        n_apply = [int(encode_windows_kernel(index, *x, L=L, K=K).n_variants.clamp(max=K).sum())
+        slices = [window_slice(index, *x, L) for x in batches]
+        n_apply = [encode_windows_kernel(index, *x, L=L, K=K).n_variants.clamp(max=K)
                    for x in batches]
     rows = []
     for name, call in lab_calls(L, K).items():
@@ -233,7 +260,7 @@ def lab_rows(index, Lc: int, D: int, *, B: int = LAB_B, L: int = LAB_L, K: int =
         row["device_ms_per_launch"] = row["bound_ms"] = None
         if cuda:
             kind = name.rsplit("_w", 1)[0]
-            row["bound_ms"] = float(np.mean([bound_ms(kind, B, L, V, n) for n in n_apply]))
+            row["bound_ms"] = bound_ms(kind, slices, n_apply, L)
             ms, _ = device_ms(functools.partial(call, index), batches)
             row["device_ms_per_launch"] = ms
             row["device_windows_per_sec"] = B / ms * 1e3

@@ -4,13 +4,16 @@ The JAX lab (``tools/window_kernel_lab.py``) is loaded from its file, and its
 Pallas kernel runs in interpret mode (``pallas_call`` wrapped with
 ``interpret=True``).  Integer outputs, so every tolerance is 0:
 
-- ``full`` and ``dma_only`` (plain versions, coarse grid at the JAX lab's
-  stride 1024) are bit-equal to the JAX lab's ``(True, True)`` and ``(True,
-  False)`` variants;
+- ``full`` and ``dma_only`` (plain versions, ``dma_only`` at the JAX lab's
+  grid stride 1024) are bit-equal to the JAX lab's ``(True, True)`` and
+  ``(True, False)`` variants;
 - ``compute_only`` equals both packages' baseline encode on the
   materialised synthetic state (the JAX variant's output is undefined);
 - ``dma_only``'s sink, the port's own output, equals a loop over numpy;
-- the fixture and the chained starts equal the JAX lab's.
+- the fixture and the chained starts equal the JAX lab's;
+- pure-torch twins of the kernel's own arithmetic (the synthetic bucket
+  table of ``compute_only``, ``dma_only``'s ``lo0`` from the count below the
+  start) equal what the plain versions compute another way.
 
 The Hopper kernel is held against the plain versions on the card only
 (``cuda``-marked tests; ``chip_smoke.py`` phase 11 at full size).
@@ -33,13 +36,21 @@ from jax.experimental import pallas
 from haplohyped_tpu.ops.haplotype_window import encode_haplotype_windows as jax_encode
 from haplohyped_tpu.ops.pallas_window import build_pallas_window_index
 from haplohyped_tpu_torch.core.constants import INT32_MAX
+from haplohyped_tpu_torch.ops import _build
 from haplohyped_tpu_torch.ops.haplotype_window import encode_haplotype_windows
-from haplohyped_tpu_torch.ops.window_kernel import SP, build_window_index
+from haplohyped_tpu_torch.ops.window_kernel import (
+    BK,
+    bucket_table,
+    build_window_index,
+    window_bounds,
+)
 from haplohyped_tpu_torch.ops.window_lab import (
+    SP,
     SYNTH_STRIDE,
     VARIANTS,
+    WINDOWS_PER_BLOCK,
     encode_windows_lab,
-    lab_index,
+    grid_lo0,
     lab_plain,
     synthetic_state,
 )
@@ -48,7 +59,7 @@ from haplohyped_tpu_torch.tools import window_kernel_lab as lab
 from chip_smoke import edge_fixtures
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-JAX_SP = 1024  # the JAX lab's coarse-grid stride
+JAX_SP = 1024  # the JAX lab's coarse-grid stride, dma_only's sp
 L, K = 1000, 64
 FIELDS = ("hap1", "hap2", "n_variants", "overflow")
 
@@ -119,8 +130,8 @@ def jax_legacy(state):
             "sub_pad": jnp.asarray(sub.reshape(D * C, Vp // 128, 128))}
 
 
-def port_index(state, sp=SP):
-    return lab_index(build_window_index(*map(torch.from_numpy, state)), sp)
+def port_index(state):
+    return build_window_index(*map(torch.from_numpy, state))
 
 
 def assert_fields_equal(got, want, fields=FIELDS):
@@ -143,7 +154,7 @@ def test_plain_matches_jax_lab_interpret(variant, B, w, jax_lab, interpret):
     jidx = build_pallas_window_index(*state[:1], *state[2:])
     call = jax_lab.make_variant_call(True, variant == "full", w, L, K, legacy=jax_legacy(state))
     want = call(jidx, jnp.asarray(state[1]), *map(jnp.asarray, draws))
-    got = encode_windows_lab(port_index(state, JAX_SP), *map(torch.from_numpy, draws),
+    got = encode_windows_lab(port_index(state), *map(torch.from_numpy, draws),
                              L=L, K=K, variant=variant, sp=JAX_SP)
     assert_fields_equal(got, want)
     if variant == "full":
@@ -232,7 +243,7 @@ def test_dma_only_matches_numpy_loop(name, sp):
     else:
         fx = edge_fixtures()[name]
     state, draws, L_, K_ = fx
-    got = encode_windows_lab(port_index(state, sp), *map(torch.from_numpy, draws),
+    got = encode_windows_lab(port_index(state), *map(torch.from_numpy, draws),
                              L=L_, K=K_, variant="dma_only", sp=sp)
     for b, (win, nv, ovf, sink) in enumerate(numpy_dma_only(state, draws, L_, K_, sp)):
         assert np.array_equal(got.hap1[b].numpy(), win) and np.array_equal(got.hap2[b].numpy(), win)
@@ -252,6 +263,93 @@ def test_full_and_compute_only_match_the_encode_on_edges(name):
 
 
 # ---------------------------------------------------------------------------
+# the kernel's arithmetic: pure-torch twins of csrc/window_kernel_lab.cu
+# ---------------------------------------------------------------------------
+
+def synthetic_first(j, count):
+    """compute_only's trip 2: ``first[row, j] = min(ceil((j << BK) / 833),
+    count)``, the bucket table of the synthetic positions ``i * 833``."""
+    return torch.minimum(((j.long() << BK) + SYNTH_STRIDE - 1) // SYNTH_STRIDE, count.long())
+
+
+def lo0_from_count(lo, sp):
+    """dma_only's ``lo0`` from ``lo``, the count below the start that the
+    table and the slice give: ``max(ceil(lo / sp) - 1, 0) * sp``, a mask
+    for ``sp`` a power of two."""
+    return torch.where(lo == 0, 0, (lo - 1) & -sp)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_synthetic_table_closed_form(seed):
+    """The closed form equals ``bucket_table`` on ``synthetic_state``'s
+    positions, for random counts, 0 and V among them."""
+    rng = np.random.default_rng(seed)
+    index = port_index(small_state(seed, D=3, V=3000))
+    D, C, V = index.pos.shape
+    counts = rng.integers(0, V + 1, size=(D, C)).astype(np.int32)
+    counts[0, 0], counts[1, 0] = 0, V
+    index = index._replace(counts=torch.from_numpy(counts))
+    pos = synthetic_state(index)[2]
+    first = bucket_table(pos, index.counts)
+    j = torch.arange(first.shape[2])
+    assert first.shape[2] == ((V - 1) * SYNTH_STRIDE >> BK) + 2
+    # the kernel reads every bucket, past the table's last as well (up to
+    # 2^19, bp 2^31): there the closed form holds the whole count
+    past = torch.tensor([first.shape[2], first.shape[2] + 1000, 2**19])
+    for d in range(D):
+        for c in range(C):
+            n = index.counts[d, c]
+            assert torch.equal(synthetic_first(j, n), first[d, c].long())
+            assert torch.equal(synthetic_first(past, n), n.long().expand(3))
+
+
+def lo0_cases():
+    """(name, state, draws, L): every edge fixture's state and random rows of
+    small_state with negative starts and starts past the last position."""
+    cases = [(name, st, dr, L_) for name, (st, dr, L_, _) in sorted(edge_fixtures().items())]
+    for seed in (0, 1):
+        state = small_state(seed)
+        rng = np.random.default_rng(seed + 7)
+        G = state[0].size
+        s = np.concatenate([rng.integers(-5000, G + 5000, 40), [-2**31, -1, 0, G, 2**31 - 1]])
+        d = rng.integers(0, 2, s.size)
+        cases.append((f"random_{seed}", state,
+                      (d.astype(np.int32), np.zeros(s.size, np.int32), s.astype(np.int32)), L))
+    return cases
+
+
+@pytest.mark.parametrize("sp", [SP, JAX_SP])
+@pytest.mark.parametrize("case", range(len(lo0_cases())), ids=[c[0] for c in lo0_cases()])
+def test_lo0_from_count_matches_grid_count(case, sp):
+    """dma_only's ``lo0`` from the count below the start (the kernel's
+    search, :func:`window_bounds`) equals the grid count of the plain
+    version, which counts ``pos[row, ::sp]`` over the whole row."""
+    _, state, draws, L_ = lo0_cases()[case]
+    index = port_index(state)
+    td = list(map(torch.from_numpy, draws))
+    lo, _ = window_bounds(index, *td, L_)
+    D, C, V = index.pos.shape
+    row = td[0].long().clamp(0, D - 1) * C + td[1].long().clamp(0, C - 1)
+    want = grid_lo0(index.pos.reshape(D * C, V)[row], td[2], sp)
+    assert torch.equal(lo0_from_count(lo, sp), want)
+
+
+def test_kernels_share_the_header_and_hash_it(tmp_path):
+    """Both window kernels include ``window_common.cuh``, and the header
+    enters every kernel's build hash: an edited header rebuilds them."""
+    hdr = _build.CSRC_DIR / "window_common.cuh"
+    assert hdr in _build._kernel_deps()
+    for name in ("window_kernel", "window_kernel_lab"):
+        assert '#include "window_common.cuh"' in (_build.CSRC_DIR / f"{name}.cu").read_text()
+    edited = tmp_path / hdr.name
+    edited.write_bytes(hdr.read_bytes() + b"\n")
+    src = _build._kernel_sources("window_kernel_lab")
+    argv = ["nvcc", *_build.NVCC_FLAGS]
+    assert (_build._target("window_kernel_lab", [*src, hdr], argv)
+            != _build._target("window_kernel_lab", [*src, edited], argv))
+
+
+# ---------------------------------------------------------------------------
 # (c) the fixture, (d) the chained starts
 # ---------------------------------------------------------------------------
 
@@ -261,7 +359,7 @@ def test_build_fixture_matches_jax_lab(jax_lab):
     assert (Lc, D) == (jLc, jD) == (10_000_000, 8)
     V = index.pos.shape[2]
     np.testing.assert_array_equal(
-        lab_index(index, JAX_SP).grid.reshape(D, -1).numpy(), np.asarray(jidx.grid))
+        index.pos[..., ::JAX_SP].reshape(D, -1).numpy(), np.asarray(jidx.grid))
     np.testing.assert_array_equal(index.counts.reshape(-1).numpy(), np.asarray(jidx.counts))
     words = np.asarray(jidx.genome_words).view(np.int8).reshape(-1)
     np.testing.assert_array_equal(words[:Lc], index.genome.numpy())
@@ -289,7 +387,7 @@ def test_make_chained_matches_jax_lab(port_call, jax_lab, interpret):
     if port_call == "dma_only_w8":
         jcall = jax_lab.make_variant_call(True, False, 8, L, K, legacy=jax_legacy(state))
         jidx = build_pallas_window_index(*state[:1], *state[2:])
-        index = port_index(state, JAX_SP)
+        index = port_index(state)
         call = functools.partial(encode_windows_lab, L=L, K=K, variant="dma_only", w=8,
                                  sp=JAX_SP)
     else:
@@ -311,10 +409,20 @@ def test_make_chained_matches_jax_lab(port_call, jax_lab, interpret):
 # ---------------------------------------------------------------------------
 
 def test_lab_index_strides_the_grid():
-    index = build_window_index(*map(torch.from_numpy, small_state()))
+    """dma_only reads the row at ``lo0`` of the grid ``pos[..., ::sp]`` it
+    slices itself: the index holds no grid."""
+    state = small_state()
+    index = port_index(state)
+    assert "grid" not in index._fields
+    draws = small_draws(0, state[0].size, 2, 12)
+    td = list(map(torch.from_numpy, draws))
     for sp in (SP, JAX_SP, 100):
-        assert torch.equal(lab_index(index, sp).grid, index.pos[..., ::sp])
-    assert lab_index(index).grid.shape == index.grid.shape
+        got = lab_plain(index, *td, L=L, K=K, variant="dma_only", sp=sp)
+        for b, (d, _, s) in enumerate(zip(*draws)):
+            grid = index.pos[d, 0, ::sp]
+            lo0 = max(int((grid < int(s)).sum()) - 1, 0) * sp
+            assert int(got.n_variants[b]) == int(index.pos[d, 0, lo0])
+            assert int(got.overflow[b]) == int(index.sub12[d, 0, lo0])
 
 
 def test_wrapper_runs_plain_versions_on_cpu_tensors():
@@ -339,8 +447,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         encode_windows_lab(index, *draws, variant="dma", **kw)
     with pytest.raises(ValueError, match="windows per block"):
         encode_windows_lab(index, *draws, variant="full", w=3, **kw)
-    with pytest.raises(ValueError, match="grid"):  # a grid of another stride
-        encode_windows_lab(index, *draws, variant="dma_only", sp=JAX_SP, **kw)
+    for sp in (0, 100):  # no grid stride; a stride the kernel cannot mask
+        with pytest.raises(ValueError, match="sp="):
+            encode_windows_lab(index, *draws, variant="dma_only", sp=sp, **kw)
     with pytest.raises(ValueError, match="K="):
         encode_windows_lab(index, *draws, variant="full", L=L, K=129)
     meta = [torch.empty(d.shape, dtype=torch.int32, device="meta") for d in draws]
@@ -349,15 +458,28 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 def test_bound_model():
+    """The bucket-table model: per window 12 + 8 + L + 2L + 8 B, the two
+    table entries (8 B), 6 B per applied variant, 4 B per other position of
+    the slice capped at two binary searches of it; the lab's rows 4 B more
+    (sink), dma_only 6 B more (lo0); compute_only its stores alone.  The
+    smoke's row-1 bound is the same function."""
     hbm = 3.35e12
-    assert lab.bound_ms("compute_only", 64, 1000, 300_000, 99) == pytest.approx(
-        64 * 2012 / hbm * 1e3)
-    prod = lab.bound_ms("prod", 64, 1000, 300_000, 80)
-    # 19 probes of 4 B for each of two searches
-    assert prod == pytest.approx((64 * (20 + 1000 + 152 + 2008) + 480) / hbm * 1e3)
-    assert lab.bound_ms("full", 64, 1000, 300_000, 80) == pytest.approx(prod + 256 / hbm * 1e3)
-    assert lab.bound_ms("dma_only", 64, 1000, 300_000, 80) == lab.bound_ms(
-        "full", 64, 1000, 300_000, 80)
+    # window 0: a slice of 5, 2 applied, 3 others; window 1: an empty slice;
+    # window 2: a slice of 100, none applied, others capped at 2 * 7
+    slices = [(torch.tensor([0, 10, 40]), torch.tensor([5, 10, 140]))]
+    n_apply = [torch.tensor([2, 0, 0])]
+    prod = lab.bound_bytes("prod", slices, n_apply, 1000)
+    assert prod["search"] == 3 * 8 + 4 * (3 + 0 + 14)
+    assert prod["applied"] == 2
+    assert prod["bytes"] == 3 * (20 + 1000 + 2008) + prod["search"] + 6 * 2
+    assert lab.bound_bytes("full", slices, n_apply, 1000)["bytes"] == prod["bytes"] + 3 * 4
+    assert lab.bound_bytes("dma_only", slices, n_apply, 1000)["bytes"] == prod["bytes"] + 3 * 10
+    assert lab.bound_bytes("compute_only", slices, n_apply, 1000)["bytes"] == 3 * 2012
+    # two batches: the bound is the mean a batch
+    assert lab.bound_ms("prod", slices * 2, n_apply * 2, 1000) == pytest.approx(
+        prod["bytes"] / hbm * 1e3)
+    import chip_smoke
+    assert not hasattr(chip_smoke, "bound_bytes")  # one model
 
 
 def test_lab_main_on_cpu(tmp_path, capsys):
@@ -394,15 +516,17 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [1, 8, 32])
+@pytest.mark.parametrize("w,L_", [(w, L) for w in WINDOWS_PER_BLOCK] + [(32, 4080)])
 @pytest.mark.parametrize("variant,sp", [("full", SP), ("dma_only", SP), ("dma_only", JAX_SP),
                                         ("compute_only", SP)])
-def test_kernel_matches_plain_on_card(variant, sp, w, card):
+def test_kernel_matches_plain_on_card(variant, sp, w, L_, card):
+    """Every variant at every w; at w=32 also L=4080, whose 32 windows a
+    block take 133,120 B of dynamic shared memory."""
     state = small_state(4)
-    index = lab_index(build_window_index(*(torch.from_numpy(a).to(card) for a in state)), sp)
+    index = build_window_index(*(torch.from_numpy(a).to(card) for a in state))
     draws = [torch.from_numpy(d).to(card) for d in small_draws(4, state[0].size, 2, 61)]
-    got = encode_windows_lab(index, *draws, L=L, K=K, variant=variant, w=w, sp=sp)
-    want = lab_plain(index, *draws, L=L, K=K, variant=variant, sp=sp)
+    got = encode_windows_lab(index, *draws, L=L_, K=K, variant=variant, w=w, sp=sp)
+    want = lab_plain(index, *draws, L=L_, K=K, variant=variant, sp=sp)
     torch.cuda.synchronize()
     assert_fields_equal(type(got)(*(t.cpu() for t in got)), type(want)(*(t.cpu() for t in want)),
                         FIELDS + ("sink",))
@@ -420,8 +544,7 @@ def test_make_chained_counts_replays_on_card(card):
         st = run(st, di)
     torch.cuda.synchronize()
     assert encode_windows_lab.launches == base + 2 * 3
-    cpu = lab.make_chained(call, lab_index(build_window_index(*map(torch.from_numpy, state))),
-                           state[0].size, 2, 16, L, 3)
+    cpu = lab.make_chained(call, port_index(state), state[0].size, 2, 16, L, 3)
     want = torch.from_numpy(small_draws(4, state[0].size, 2, 16)[2])
     for _ in range(2):
         want = cpu(want, di.cpu())

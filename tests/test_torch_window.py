@@ -21,7 +21,7 @@ from haplohyped_tpu.ops.pallas_window import (
     build_pallas_window_index,
     encode_windows_pallas,
 )
-from haplohyped_tpu_torch.ops import window_kernel
+from haplohyped_tpu_torch.ops import window_lab
 from haplohyped_tpu_torch.ops.haplotype_window import (
     encode_haplotype_windows,
     windows_to_onehot,
@@ -106,15 +106,16 @@ def test_windows_to_onehot_matches_jax():
 
 
 def test_index_matches_jax_fast_index():
-    """The kernel's packed sub12 and coarse grid equal the JAX fast path's
-    (same packing; the grid strides agree at 512)."""
+    """The kernel's packed sub12 equals the JAX fast path's (same packing),
+    and so does the grid the lab's dma_only slices, ``pos[..., ::SP]`` (the
+    strides agree at 512)."""
     state, _, _, _ = random_fixture(1, 256, 32)
     genome, offsets, pos, ref, alt, p1, p2, counts = state
     idx = build_window_index(*map(torch.from_numpy, state))
     jidx = jax_build_window_index(genome, pos, ref, alt, p1, p2)
-    assert window_kernel.SP == 512
+    assert window_lab.SP == 512
     np.testing.assert_array_equal(idx.sub12.numpy(), np.asarray(jidx.sub12))
-    np.testing.assert_array_equal(idx.grid.numpy(), np.asarray(jidx.grid))
+    np.testing.assert_array_equal(idx.pos[..., ::window_lab.SP].numpy(), np.asarray(jidx.grid))
 
 
 def test_index_rejects_codes_outside_7_bits():

@@ -39,7 +39,6 @@ from haplohyped_tpu_torch.ops.window_kernel import (
     window_bounds,
     window_slice,
 )
-from haplohyped_tpu_torch.ops.window_lab import lab_index
 
 from chip_smoke import edge_fixtures
 from tests.test_torch_window import random_fixture
@@ -178,7 +177,9 @@ def test_index_carries_the_table():
     index = index_of(state)
     assert index.first.is_contiguous()
     assert torch.equal(index.first, bucket_table(index.pos, index.counts, BK))
-    assert lab_index(index, 1024).first is index.first
+    # no coarse grid: the lab's dma_only slices pos[..., ::sp] from the index
+    assert "grid" not in index._fields
+    assert index.pos[..., ::1024].shape == (*index.pos.shape[:2], -(-index.pos.shape[2] // 1024))
     # a state with no variants has one bucket start, at 0
     empty = EDGE_FIXTURES["empty_rows_and_overflow"][0]
     first = bucket_table(torch.from_numpy(empty[2]), torch.from_numpy(empty[7]), 5)
