@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--train-times]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -71,9 +71,28 @@ Phases (any failure exits non-zero; nothing is caught):
    plain version's time at the lab shape, and ``full_w1 / prod`` for each
    state, which must not exceed 1.25 (the lab's ``full`` at one window a
    block is the production kernel's code).
+13. The training path, at the full width of ``HaploFormerConfig()`` (d_model
+   256, 8 heads, 4 layers, bf16 compute on float32 params) on the phase-3
+   sampler (B=64, L=1000, K=128): 20 fused sample-into-train steps (CUDA's
+   sync debug mode raising on any host round-trip after the first three)
+   and ``train_on_sampler`` for 5 steps, with the window kernel's launch
+   count set to 0 just before and read just after (one launch a batch
+   drawn); every loss finite; the first fused batch bit-equal to the plain
+   version.  The model on the card against the CPU from one seed's params:
+   d_model 64 x 2 layers in float32 with TF32 off (largest relative error
+   within ``F32_TOL``) and the default configuration in bf16 against
+   float32 (``BF16_TOL``).  A checkpoint round trip.  Then the times, in a
+   process of their own (``--train-times``, which runs that part alone): ms
+   a train step on batches sampled beforehand and a fused step, windows/s
+   consumed beside ``sample_many(16)``'s, ``mfu`` against 989 TFLOP/s bf16,
+   device busy time, idle share and device ops a step (``torch.profiler``),
+   peak memory, each stage of a fused step between synchronizes; ms a step,
+   ``mfu`` and a trace of the JAX bench's scaled point (d_model 512, 8
+   layers, B=256).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The lines before the last are a JSON object ``{"train": {...}}`` of phase
+13's numbers, then one with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -82,9 +101,11 @@ import argparse
 import functools
 import importlib.util
 import json
+import math
 import os
 import re
 import struct
+import subprocess
 import sys
 import tempfile
 import time
@@ -101,9 +122,28 @@ from haplohyped_tpu_torch.core.constants import (
     SNP_STRUCT_DTYPE,
     cohort_group_path,
 )
-from haplohyped_tpu_torch.core.timing import HBM_BYTES_PER_S, card_line, device_ms
+from haplohyped_tpu_torch.core.timing import (
+    BF16_DENSE_FLOPS_PER_S,
+    HBM_BYTES_PER_S,
+    card_line,
+    device_ms,
+)
 from haplohyped_tpu_torch.hostio.frame_format import REC12_SIZE, REC_SIZE
 from haplohyped_tpu_torch.hostio.vcf import VCFSource
+from haplohyped_tpu_torch.models.haploformer import (
+    HaploFormer,
+    HaploFormerConfig,
+    train_flops_per_step,
+)
+from haplohyped_tpu_torch.models.train import (
+    create_train_state,
+    loss_fn,
+    make_fused_train_step,
+    make_train_step,
+    restore_checkpoint,
+    save_checkpoint,
+    train_on_sampler,
+)
 from haplohyped_tpu_torch.ops import _build
 from haplohyped_tpu_torch.ops.decode_kernel import (
     decode_frames12_kernel,
@@ -459,34 +499,42 @@ def profiler_device_ms(fn, args_list) -> float | None:
     return sum(e.time_range.elapsed_us() for e in dev) / len(args_list) / 1e3
 
 
-def trace_sample_many(sampler, n_calls: int) -> str:
-    """Device busy share and the heaviest device ops of ``sample_many(16)``
-    under ``torch.profiler`` (the profiler's own host cost inflates the
-    wall time, so the idle share is an upper bound)."""
+def trace_calls(fn, n_calls: int, what: str, top: int = 6) -> tuple[str, dict]:
+    """Device busy time, idle share and device ops a call of ``fn()``, and
+    its ``top`` heaviest device ops, under ``torch.profiler`` after one call
+    to warm up (the profiler's own host cost inflates the wall time, so this
+    idle share is an upper bound).  User annotations on the device's
+    timeline (``Optimizer.step``) span other ops and are left out.  Returns
+    the text and ``{"wall_ms", "busy_ms", "ops"}`` a call (``busy_ms`` and
+    ``ops`` ``None`` where the profiler recorded no device op)."""
     from torch.profiler import ProfilerActivity, profile
 
-    sampler.sample_many(16)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_calls):
-            sampler.sample_many(16)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    stats = {"wall_ms": wall_us / n_calls / 1e3, "busy_ms": None, "ops": None}
     if not dev:
-        return "trace: the profiler recorded no device events"
+        return f"trace {what}: the profiler recorded no device events", stats
     by_name: dict[str, list[float]] = {}
     for e in dev:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     busy = sum(sum(v) for v in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
+    stats |= {"busy_ms": busy / n_calls / 1e3, "ops": len(dev) / n_calls}
+    heavy = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]
     rows = "; ".join(
-        f"{name[:60]} x{len(v)} {sum(v) / n_calls:.1f} us/call" for name, v in top
+        f"{name[:60]} x{len(v)} {sum(v) / n_calls:.1f} us/call" for name, v in heavy
     )
-    return (f"trace sample_many(16) x{n_calls}: wall {wall_us / n_calls:.1f} us/call, "
+    return (f"trace {what} x{n_calls}: wall {wall_us / n_calls:.1f} us/call, "
             f"device busy {busy / n_calls:.1f} us/call, idle share "
-            f"{1 - busy / wall_us:.3f}; {len(dev) / n_calls:.0f} device ops/call; top: {rows}")
+            f"{1 - busy / wall_us:.3f}; {len(dev) / n_calls:.0f} device ops/call; top: {rows}",
+            stats)
 
 
 def window_batches(sampler, first_step: int, n: int, steps: int) -> list:
@@ -1031,15 +1079,303 @@ def lab_path(card: str, seed: int, sampler, cmp: Comparisons) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the training path
+# ---------------------------------------------------------------------------
+
+#: the JAX bench's scaled point (``bench.py:1450-1456``)
+SCALED_CFG, SCALED_B = HaploFormerConfig(d_model=512, num_layers=8), 256
+#: fused steps, then ``train_on_sampler``'s steps, of the training path
+N_FUSED, N_TRAIN_ON = 20, 5
+#: sampling steps of the fused steps: past every step the earlier phases drew
+FUSED_STEP0 = 1_000_000
+#: card against the CPU: the largest relative error allowed over the forward
+#: outputs and every gradient, each relative to its tensor's largest value
+#: (gradients floored at 1e-3 of the largest gradient: the attention key
+#: biases' gradient is zero up to round-off).  float32 with TF32 off differs
+#: from the CPU only in the order of sums; bf16 on the card against float32
+#: on the CPU also rounds each op's result to 8 significant bits
+F32_TOL, BF16_TOL = 1e-4, 5e-2
+
+
+def outputs_and_grads(model, h1, h2, nv) -> dict:
+    """The forward outputs and every parameter's gradient of ``loss_fn``,
+    as float32 CPU tensors."""
+    loss, _ = loss_fn(model, h1, h2, nv)
+    loss.backward()
+    with torch.no_grad():
+        out = model(h1, h2)
+    return ({k: v.float().cpu() for k, v in out.items()}
+            | {f"grad {n}": p.grad.float().cpu() for n, p in model.named_parameters()})
+
+
+def max_rel_err(got: dict, want: dict) -> tuple[float, str]:
+    """The largest relative error over the tensors of ``want`` (see
+    ``F32_TOL``), and the tensor's name."""
+    floor = 1e-3 * max(float(v.abs().max()) for k, v in want.items() if k.startswith("grad "))
+    errs = {k: float((got[k] - w).abs().max()) / max(float(w.abs().max()), floor)
+            for k, w in want.items()}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def card_against_cpu(batch, seed: int) -> dict:
+    """The model on the card against the CPU, from one seed's params, on
+    ``batch`` (hap1, hap2, n_variants on the card): d_model 64, 2 layers in
+    float32 with TF32 off, then the default configuration in bf16 against
+    float32 on the CPU."""
+    cpu = [t.cpu() for t in batch]
+    L = batch[0].shape[1]
+    small = HaploFormerConfig(d_model=64, num_layers=2, dtype="float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        f32 = max_rel_err(outputs_and_grads(HaploFormer(small, L, seed, "cuda"), *batch),
+                          outputs_and_grads(HaploFormer(small, L, seed, "cpu"), *cpu))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    bf16 = max_rel_err(
+        outputs_and_grads(HaploFormer(HaploFormerConfig(), L, seed, "cuda"), *batch),
+        outputs_and_grads(HaploFormer(HaploFormerConfig(dtype="float32"), L, seed, "cpu"), *cpu))
+    log(f"model card against CPU, B={batch[0].shape[0]} L={L}: d_model 64 x 2 layers "
+        f"float32 (TF32 off) largest relative error {f32[0]:.3g} ({f32[1]}), limit {F32_TOL}; "
+        f"HaploFormerConfig() bf16 against float32 {bf16[0]:.3g} ({bf16[1]}), limit {BF16_TOL}")
+    check(f32[0] <= F32_TOL, f"float32 card against CPU: {f32}")
+    check(bf16[0] <= BF16_TOL, f"bf16 card against float32 CPU: {bf16}")
+    return {"f32_max_rel_err": f32[0], "bf16_max_rel_err": bf16[0]}
+
+
+def train_path(seed: int, sampler, cmp: Comparisons) -> dict:
+    """Phase 13 on the main process: ``HaploFormerConfig()`` trained on the
+    phase-3 sampler by ``N_FUSED`` fused steps (CUDA's sync debug mode
+    raising on any host round-trip after the first three) and
+    ``train_on_sampler``, with the window kernel's launch count set to 0 just
+    before and read just after; the first fused batch against the plain
+    version; the model on the card against the CPU; a checkpoint round trip."""
+    first = sampler.windows_from_draws(*sampler.draw_indices(FUSED_STEP0))
+    state = create_train_state(HaploFormerConfig(), (first.hap1, first.hap2), seed=seed)
+    fused = make_fused_train_step(sampler)
+    encode_windows_kernel.launches = 0
+    t0 = time.perf_counter()
+    metrics = []
+    for i in range(N_FUSED):
+        torch.cuda.set_sync_debug_mode("error" if i >= 3 else 0)
+        state, m = fused(state, FUSED_STEP0 + i)
+        metrics.append(m)
+    torch.cuda.set_sync_debug_mode(0)
+    _, losses = train_on_sampler(sampler, steps=N_TRAIN_ON, log_every=1, seed=seed)
+    torch.cuda.synchronize()
+    launches = encode_windows_kernel.launches
+    n_batches = N_FUSED + 1 + N_TRAIN_ON
+    fused_losses = torch.stack([m["loss"] for m in metrics]).tolist()
+    log(f"training path: {N_FUSED} fused steps and train_on_sampler({N_TRAIN_ON} steps) in "
+        f"{time.perf_counter() - t0:.2f} s; window kernel launches {launches} for {n_batches} "
+        f"batches; fused losses {[round(x, 4) for x in fused_losses]}; train_on_sampler "
+        f"losses {[round(x, 4) for x in losses]}")
+    check(launches == n_batches, f"{launches} window kernel launches for {n_batches} batches")
+    check(all(map(math.isfinite, fused_losses + losses)), "a loss is not finite")
+    want = sampler.windows_from_draws(*sampler.draw_indices(FUSED_STEP0), kernel="baseline")
+    cmp.windows(first, want, "first fused step's batch")
+
+    errs = card_against_cpu((first.hap1[:8], first.hap2[:8], first.n_variants[:8]), seed)
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        path = save_checkpoint(state, tmp)
+        other = create_train_state(HaploFormerConfig(), (first.hap1, first.hap2), seed=seed + 1)
+        back = restore_checkpoint(path, other)
+    check(back.step == state.step == N_FUSED, "restored step")
+    for a, b in ((state.model.state_dict(), back.model.state_dict()),
+                 (state.optimizer.state_dict()["state"], back.optimizer.state_dict()["state"])):
+        check(a.keys() == b.keys(), "restored keys")
+        for k in a:
+            x, y = a[k], b[k]
+            same = (all(torch.equal(x[j], y[j]) for j in x) if isinstance(x, dict)
+                    else torch.equal(x, y))
+            check(same, f"restored {k} differs")
+    with torch.no_grad():
+        la = loss_fn(state.model, first.hap1, first.hap2, first.n_variants)[0]
+        lb = loss_fn(back.model, first.hap1, first.hap2, first.n_variants)[0]
+    check(torch.equal(la, lb), "the restored model's loss differs")
+    log(f"checkpoint round trip on the card: step {back.step}, model and AdamW state "
+        "bit-equal, the next batch's loss bit-equal")
+    return {"window_launches": launches, "batches": n_batches, **errs,
+            "fused_losses": [fused_losses[0], fused_losses[-1]], "train_on_sampler_losses": losses}
+
+
+def step_times(fn, n_warm: int, n: int) -> tuple[float, float]:
+    """``(device ms, host ms)`` a call of ``fn(i)`` over ``n`` calls after
+    ``n_warm``: CUDA events around the calls, and the host clock to a
+    synchronize."""
+    for i in range(n_warm):
+        fn(i)
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    a.record()
+    for i in range(n_warm, n_warm + n):
+        fn(i)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n, (time.perf_counter() - t0) * 1e3 / n
+
+
+def stage_split(state, batches, sampler, step0: int) -> dict:
+    """Median ms a step of each stage of a fused step, each run alone
+    between synchronizes: ``{stage: (host ms, ms to the synchronize)}``, the
+    host's time being that until the call returns.  Stages: ``sample`` (the
+    draws and the window kernel), ``forward`` (``loss_fn``), ``backward``
+    and ``optimizer`` (AdamW's step)."""
+    times = {k: ([], []) for k in ("sample", "forward", "backward", "optimizer")}
+
+    def stage(name, fn):
+        host, synced = times[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        synced.append(time.perf_counter() - t0)
+        return out
+
+    for i, b in enumerate(batches):
+        stage("sample", lambda: sampler.windows_from_draws(*sampler.draw_indices(step0 + i)))
+        loss = stage("forward", lambda: loss_fn(state.model, b.hap1, b.hap2, b.n_variants)[0])
+        state.optimizer.zero_grad(set_to_none=True)
+        stage("backward", loss.backward)
+        stage("optimizer", state.optimizer.step)
+    return {k: (float(np.median(h)) * 1e3, float(np.median(w)) * 1e3)
+            for k, (h, w) in times.items()}
+
+
+def train_times(seed: int) -> dict:
+    """Phase 13's times, run in a process of their own (``--train-times``):
+    a profiler session slows the launch path after it and records fewer
+    device ops as a process ages (``PERF.md`` §7), so the training path is
+    timed where no phase ran before it.  On the deployment state of
+    ``--seed``: ``sample_many(16)``'s windows/s; ``HaploFormerConfig()`` at
+    B=64, L=1000, a train step on batches sampled beforehand and a fused
+    step (3 warm-up steps, then 20: CUDA events and the host clock),
+    windows/s consumed, ``mfu`` against the bf16 peak, peak memory, and a
+    ``torch.profiler`` trace of 5 fused steps; then the scaled point, timed
+    and traced the same way."""
+    dev = torch.device("cuda")
+    card = card_line()
+    genome, cohort, regions = make_state(seed, dev)
+    sampler = DeviceHaplotypeSampler(genome, cohort, regions,
+                                     SamplerConfig(seq_length=SEQ_LENGTH, batch_size=BATCH))
+    sampler.sample_many(16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        sampler.sample_many(16)
+    torch.cuda.synchronize()
+    sampler_wps = 20 * 16 * BATCH / (time.perf_counter() - t0)
+
+    batches = [sampler.sample() for _ in range(23)]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = HaploFormerConfig()
+    st = [create_train_state(cfg, (batches[0].hap1, batches[0].hap2), seed=seed)]
+    step, fused = make_train_step(), make_fused_train_step(sampler)
+
+    def train(i):
+        b = batches[i]
+        st[0] = step(st[0], b.hap1, b.hap2, b.n_variants)[0]
+
+    def fuse(i):
+        st[0] = fused(st[0], 2 * FUSED_STEP0 + i)[0]
+
+    ms, host_ms = step_times(train, 3, 20)
+    ms_fused, host_fused = step_times(fuse, 3, 20)
+    peak = torch.cuda.max_memory_allocated()
+    flops = train_flops_per_step(cfg, BATCH, SEQ_LENGTH)
+    split = stage_split(st[0], batches[3:13], sampler, 3 * FUSED_STEP0)
+    log(f"[{card}] fused step by stage, each between synchronizes (median of 10, host "
+        f"ms / ms to the synchronize): "
+        + ", ".join(f"{k} {h:.3f} / {w:.3f}" for k, (h, w) in split.items()))
+    calls = iter(range(100, 200))
+    text, tr = trace_calls(lambda: fuse(next(calls)), 5, "fused train step", top=12)
+    log(f"[{card}] {text}")
+    out = {
+        "ms_step": ms, "ms_step_host": host_ms, "ms_fused": ms_fused, "ms_fused_host": host_fused,
+        "windows_per_s": BATCH / host_ms * 1e3, "fused_windows_per_s": BATCH / host_fused * 1e3,
+        "sample_many_16_windows_per_s": sampler_wps, "flops_per_step": flops,
+        "mfu": flops / (ms * 1e-3) / BF16_DENSE_FLOPS_PER_S,
+        "device_busy_ms": tr["busy_ms"], "device_ops_per_step": tr["ops"],
+        "idle_share": None if tr["busy_ms"] is None else 1 - tr["busy_ms"] / ms_fused,
+        "peak_mem_gib": peak / 2**30, "train_mem_gib": (peak - mem0) / 2**30,
+        "split_host_ms": {k: h for k, (h, _) in split.items()},
+        "split_ms": {k: w for k, (_, w) in split.items()},
+    }
+    log(f"[{card}] train step HaploFormerConfig() B={BATCH} L={SEQ_LENGTH}: {ms:.4f} ms a step "
+        f"(CUDA events), {host_ms:.4f} ms (host clock), {out['windows_per_s']:,.0f} windows/s "
+        f"consumed; fused step {ms_fused:.4f} ms, {host_fused:.4f} ms, "
+        f"{out['fused_windows_per_s']:,.0f} windows/s; sample_many(16) {sampler_wps:,.0f} "
+        f"windows/s; {flops:.4g} FLOPs a step, mfu {out['mfu']:.4f} (989 TFLOP/s bf16); "
+        f"peak memory {out['peak_mem_gib']:.3f} GiB ({out['train_mem_gib']:.3f} above the "
+        f"sampler's state)")
+
+    st.clear()
+    torch.cuda.empty_cache()
+    n = SCALED_B // BATCH
+    big = []
+    for _ in range(13):
+        b = sampler.sample_many(n)
+        big.append(tuple(t.reshape(SCALED_B, *t.shape[2:]) for t in (b.hap1, b.hap2, b.n_variants)))
+    st.append(create_train_state(SCALED_CFG, big[0][:2], seed=seed))
+
+    def train_big(i):
+        st[0] = step(st[0], *big[i])[0]
+
+    ms_big, host_big = step_times(train_big, 3, 10)
+    flops_big = train_flops_per_step(SCALED_CFG, SCALED_B, SEQ_LENGTH)
+    calls = iter(range(3, 13))
+    text, tr = trace_calls(lambda: train_big(next(calls)), 5, "scaled train step", top=12)
+    log(f"[{card}] {text}")
+    out["scaled"] = {"d_model": SCALED_CFG.d_model, "num_layers": SCALED_CFG.num_layers,
+                     "B": SCALED_B, "ms_step": ms_big, "ms_step_host": host_big,
+                     "flops_per_step": flops_big,
+                     "mfu": flops_big / (ms_big * 1e-3) / BF16_DENSE_FLOPS_PER_S,
+                     "device_busy_ms": tr["busy_ms"], "device_ops_per_step": tr["ops"]}
+    log(f"[{card}] train step scaled point d_model {SCALED_CFG.d_model} x "
+        f"{SCALED_CFG.num_layers} layers B={SCALED_B} L={SEQ_LENGTH}: "
+        f"{ms_big:.4f} ms a step (CUDA events), {host_big:.4f} ms (host clock), "
+        f"{flops_big:.4g} FLOPs, mfu {out['scaled']['mfu']:.4f}")
+    return out
+
+
+def run_train_times(seed: int) -> dict:
+    """``train_times`` in a child process; its log lines are relayed."""
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--train-times", "--seed", str(seed)],
+        capture_output=True, text=True, timeout=600,
+    )
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        log(line)
+    check(proc.returncode == 0 and lines,
+          f"--train-times exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train-times", action="store_true",
+                    help="time phase 13's training path alone and print the times as "
+                         "one JSON line (phase 13 runs this in a process of its own)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    if args.train_times:
+        print(json.dumps(train_times(args.seed)), flush=True)
+        return 0
     dev = torch.device("cuda")
     cmp = Comparisons()
 
@@ -1170,7 +1506,7 @@ def main() -> int:
     t64 = window_times(card, index, window_batches(sampler, 1000, 200, 1), 40, cmp)
     check(None not in (t64["ms"], t64["plain_ms"]), "the profiler recorded no device ops")
     ms_kernel, ms_plain, ms_bound = t64["ms"], t64["plain_ms"], t64["bound_ms"]
-    log(f"[{card}] " + trace_sample_many(sampler, 10))
+    log(f"[{card}] " + trace_calls(lambda: sampler.sample_many(16), 10, "sample_many(16)")[0])
     window_times(card, index, window_batches(sampler, 2000, 40, 16), 4, cmp)
 
     # -- 7-10. the converter -------------------------------------------------
@@ -1189,6 +1525,14 @@ def main() -> int:
     lab_cmp = Comparisons()
     lab_checks(sampler, args.seed, lab_cmp)
     lab_times = lab_path(card, args.seed, sampler, lab_cmp)
+
+    # -- 13. the training path ----------------------------------------------
+    t0 = time.perf_counter()
+    train = train_path(args.seed, sampler, cmp)
+    train |= run_train_times(args.seed)
+    log(f"training path phase: {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"train": {"card": card, "config": "HaploFormerConfig() d_model 256, 8 heads, "
+                              "4 layers, bf16", "B": BATCH, "L": SEQ_LENGTH, **train}}))
 
     kernels = [{
         "name": "window_kernel",

@@ -1,10 +1,12 @@
 """haplohyped_tpu_torch — the PyTorch/CUDA port of haplohyped_tpu for one
 NVIDIA H100.
 
-It holds the training-time data path (cohort and reference HDF5 to device
-tensors, the variant-aware haplotype window encode on a hand-written Hopper
-kernel beside its plain PyTorch version, and the on-device sampler) and the
-VCF -> cohort-HDF5 converter's per-donor path
+It holds the training path (cohort and reference HDF5 to device tensors,
+the variant-aware haplotype window encode on a hand-written Hopper kernel
+beside its plain PyTorch version, the on-device sampler, and the
+HaploFormer model with its train step, fused sample-into-train step,
+checkpoints and ``train_on_sampler`` in ``models/``) and the VCF ->
+cohort-HDF5 converter's per-donor path
 (``pipeline.vcf_to_h5.VCFtoHDF5Converter``, its record decode on two more
 Hopper kernels).  It imports torch and numpy (h5py and libblosc only where
 an HDF5 file is read or written), and nothing of JAX or ``haplohyped_tpu``.
@@ -17,12 +19,17 @@ from haplohyped_tpu_torch.data.cohort import CohortTensors
 from haplohyped_tpu_torch.data.genome import GenomeTensors
 from haplohyped_tpu_torch.data.regions import load_bed_regions
 from haplohyped_tpu_torch.data.sampler import DeviceHaplotypeSampler, HaplotypeBatch
+from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
+from haplohyped_tpu_torch.models.train import train_on_sampler
 
 __all__ = [
     "CohortTensors",
     "DeviceHaplotypeSampler",
     "GenomeTensors",
+    "HaploFormer",
+    "HaploFormerConfig",
     "HaplotypeBatch",
     "SamplerConfig",
     "load_bed_regions",
+    "train_on_sampler",
 ]

@@ -1,6 +1,6 @@
 """Device timing on the card: the card's name and power limit, a kernel's
-device time back to back behind a sleep kernel, and the memory rate that
-bounds a byte-bound kernel."""
+device time back to back behind a sleep kernel, and the card's peak memory
+and bf16 rates that bound a kernel or a train step."""
 
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ import torch
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet), FLOP/s
+BF16_DENSE_FLOPS_PER_S = 989e12
 
 
 def card_line() -> str:

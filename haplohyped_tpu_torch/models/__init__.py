@@ -1,0 +1,16 @@
+from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
+from haplohyped_tpu_torch.models.train import (
+    TrainState,
+    create_train_state,
+    loss_fn,
+    make_train_step,
+)
+
+__all__ = [
+    "HaploFormer",
+    "HaploFormerConfig",
+    "TrainState",
+    "create_train_state",
+    "loss_fn",
+    "make_train_step",
+]

@@ -41,7 +41,8 @@ def test_importing_every_module_leaves_jax_out():
     res = json.loads(out.stdout.splitlines()[-1])
     for name in ("data.sampler", "ops.window_kernel", "ops.decode_kernel", "ops.vcf_decode",
                  "hostio.native", "hostio.vcf", "pipeline.vcf_to_h5", "storage.fastwrite",
-                 "ops.window_lab", "tools.window_kernel_lab"):
+                 "ops.window_lab", "tools.window_kernel_lab", "models.haploformer",
+                 "models.train"):
         assert f"haplohyped_tpu_torch.{name}" in res["imported"]
     bad = [m for m in res["modules"] if _forbidden(m)]
     assert bad == []
