@@ -89,10 +89,26 @@ Phases (any failure exits non-zero; nothing is caught):
    peak memory, each stage of a fused step between synchronizes; ms a step,
    ``mfu`` and a trace of the JAX bench's scaled point (d_model 512, 8
    layers, B=256).
+14. The single-pass converter (``VCFtoHDF5Converter`` on its default flags,
+   ``device="cuda"``), which runs torch ops on the card and no Hopper kernel
+   (the launch counts, set to 0 before it, stay 0): ``convert_chromosome(1,
+   writer=...)`` on phase 7's chr1 file, every donor's struct byte-equal to
+   phase 8's per-donor struct and to a ``device_decode=False`` single pass;
+   ``decode_frames_v2`` on the card bit-equal to ``decode_frames_v2_numpy``
+   on the chr1 frame and on a frame of 200 contigs where most records escape;
+   the 300-contig file refused by ``frame_v2`` (``ValueError``).  Then at
+   cohort width, a chr22 file of 1,103,547 records (1000 Genomes Phase 3's
+   chr22 count) over GRCh38 chr22's length and 128 donors:
+   ``convert_chromosome(22)``, and 8 of its donors through the per-donor
+   ``parse_snps``, byte-equal.  Times on both files: the task (host clock),
+   records/s and donor-records/s, the per-donor task on the same donors, the
+   decode's peak device memory, the task split into framing, h2d, device
+   decode, d2h and struct assembly (each ended by a synchronize), and the
+   decode's device ms (CUDA events) beside its byte bound.
 
 The lines before the last are a JSON object ``{"train": {...}}`` of phase
-13's numbers, then one with one entry per kernel; the last line is
-``{"ok": true, "device": {...}}``.
+13's numbers, one ``{"single_pass": {...}}`` of phase 14's, then one with one
+entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -156,6 +172,11 @@ from haplohyped_tpu_torch.ops.haplotype_window import (
 from haplohyped_tpu_torch.ops.vcf_decode import (
     decode_frames12_packed,
     decode_frames_packed,
+    decode_frames_v2,
+    decode_frames_v2_numpy,
+    decode_v2_genotypes,
+    decode_v2_records,
+    decoded_to_numpy,
     unpack12_columns,
 )
 from haplohyped_tpu_torch.ops.window_kernel import (
@@ -173,8 +194,13 @@ from haplohyped_tpu_torch.ops.window_lab import (
     lab_plain,
     lab_smem_bytes,
 )
-from haplohyped_tpu_torch.pipeline.records import snp_struct_from_frames12
-from haplohyped_tpu_torch.pipeline.vcf_to_h5 import VCFtoHDF5Converter
+from haplohyped_tpu_torch.pipeline.records import snp_struct_from_frames12, snp_structs_from_v2
+from haplohyped_tpu_torch.pipeline.vcf_to_h5 import (
+    V2_GENOTYPE_COLUMNS,
+    V2_RECORD_COLUMNS,
+    VCFtoHDF5Converter,
+    upload_v2,
+)
 from haplohyped_tpu_torch.tools import window_kernel_lab as lab
 from haplohyped_tpu_torch.tools.deployment import make_state
 
@@ -887,7 +913,8 @@ def converter_main_path(tmp: str, seed: int, dev, dec: DecodeComparisons,
         n = _compare_files(conv.config.final_h5_path, host.config.final_h5_path)
         log(f"converter run(): {n} datasets byte-equal to the device_decode=False run")
     return {"launches": launches, "task_s": task_s, "chr1": chr1, "samples": samples,
-            "threads": threads, "n_records": n_records}
+            "threads": threads, "n_records": n_records, "samples_path": samples_path,
+            "ctg_path": ctg_path, "structs": {d: got[d][0] for d in samples}}
 
 
 def decode_edge_fixtures(tmp: str, seed: int, dev, dec: DecodeComparisons, f12, f64) -> None:
@@ -1361,6 +1388,215 @@ def run_train_times(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the single-pass converter
+# ---------------------------------------------------------------------------
+
+#: 1000 Genomes Phase 3 chr22 (ALL.chr22.phase3_shapeit2_mvncall_integrated_v5a):
+#: its record count, over GRCh38 chr22's length; donors cut from its 2,504 to
+#: 128 (writing the file for 256 took 64.1 s on an H100 host, past the 45 s
+#: this phase allows it)
+CHR22_LENGTH = 50_818_468
+CHR22_RECORDS = 1_103_547
+N_COHORT_DONORS = 128
+COHORT_CUT = "cut from 2,504, and from 256, whose file took 64.1 s to write, past 45 s"
+#: donors of the cohort file also converted one at a time
+N_PER_DONOR = 8
+#: the file whose framing without a region escapes most records: contigs of
+#: 100 Mb with 1,000 records each (gaps past 65,535, a new chrom every 1,000)
+N_ESCAPE_CONTIGS, ESCAPE_CONTIG_LENGTH = 200, 100_000_000
+SPLIT_STAGES = ("framing", "h2d", "device_decode", "d2h", "struct_assembly")
+
+
+def _kernel_launches() -> dict:
+    return {"vcf_decode12": decode_frames12_kernel.launches,
+            "vcf_decode64": decode_frames_kernel.launches,
+            "window_kernel": encode_windows_kernel.launches}
+
+
+def collect_structs(conv, chromosome: int) -> tuple[dict, float, int]:
+    """``convert_chromosome`` with a writer that keeps every struct (no
+    h5py), every donor succeeding.  Returns the structs, the task's seconds
+    (host clock) and its peak device memory above what was allocated."""
+    got = {}
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = conv.convert_chromosome(chromosome, writer=lambda d, c, s: got.__setitem__(d, s))
+    secs = time.perf_counter() - t0
+    bad = [(r.donor_id, r.error) for r in res if r.error is not None]
+    check(not bad and len(got) == len(res), f"convert_chromosome({chromosome}): {bad[:3]}")
+    return got, secs, torch.cuda.max_memory_allocated() - mem0
+
+
+def v2_device_decode(fixed, gt, exc_idx, exc_pos, run_counts, run_ids):
+    """The converter's device work on an uploaded frame: the per-record
+    columns, and the genotype columns of every sample as one transposed
+    block (``decode_v2_to_host`` takes one block up to 1 GiB of genotypes)."""
+    rec = decode_v2_records(fixed, exc_idx, exc_pos, run_counts, run_ids)
+    return rec, decode_v2_genotypes(gt.t().contiguous(), rec["well_formed"][None, :])
+
+
+def check_v2_decode(frame, dev, what: str) -> None:
+    """``decode_frames_v2`` on the card against ``decode_frames_v2_numpy`` on
+    the same frame: every column bit-equal, in the JAX package's dtypes."""
+    got = decoded_to_numpy(decode_frames_v2(*upload_v2(frame, dev)))
+    want = decode_frames_v2_numpy(frame.fixed, frame.gt, frame.exc_idx, frame.exc_pos,
+                                  frame.run_counts, frame.run_ids)
+    check(list(got) == list(want), f"{what}: columns")
+    for k, w in want.items():
+        g = got[k]
+        check(g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w),
+              f"{what}: decode_frames_v2 {k} differs from decode_frames_v2_numpy")
+
+
+def single_pass_split(path: str, chrom: str, samples: list, dev, threads: int):
+    """The single-pass task run stage by stage, each ended by a synchronize
+    (host clock, s): framing, h2d, device decode, d2h, struct assembly.
+    Returns the stage times, the structs and the frame."""
+    t = [time.perf_counter()]
+    frame = VCFSource(path, threads).frame_v2(samples, chrom)
+    t.append(time.perf_counter())
+    tensors = upload_v2(frame, dev)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    rec, gen = v2_device_decode(*tensors)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    host = {k: rec[k].cpu().numpy() for k in V2_RECORD_COLUMNS}
+    host["start"], host["stop"] = host["start"].astype(np.uint32), host["stop"].astype(np.uint32)
+    host |= {k: gen[k].cpu().numpy().T for k in V2_GENOTYPE_COLUMNS}
+    t.append(time.perf_counter())
+    structs = snp_structs_from_v2(host, frame.chroms, frame.samples, chrom_filter=chrom)
+    t.append(time.perf_counter())
+    return dict(zip(SPLIT_STAGES, np.diff(t).tolist())), structs, frame
+
+
+def v2_decode_times(frame, dev) -> tuple[float, float]:
+    """The device decode's ms a call (CUDA events, back to back behind a
+    sleep kernel) and its bound: the frame's 5N + NS bytes and side arrays
+    read once, the JAX package's output columns written once (17 bytes a
+    record, 5 a record and sample), over 3.35 TB/s."""
+    tensors = upload_v2(frame, dev)
+    ms = device_ms(v2_device_decode, [tensors] * 5)[0]
+    n, s = frame.n, frame.n_samples
+    read = 5 * n + n * s + 12 * frame.exc_idx.shape[0] + 9 * frame.run_counts.shape[0]
+    return ms, (read + 17 * n + 5 * n * s) / HBM_BYTES_PER_S * 1e3
+
+
+def _timed_file(card: str, what: str, path: str, chrom: str, samples: list, dev, threads: int,
+                structs: dict, task_s: float, peak: int, per_donor_s: dict) -> dict:
+    """The times of one file: the task, its split and the device decode
+    (the split's structs must equal the task's)."""
+    split, split_structs, frame = single_pass_split(path, chrom, samples, dev, threads)
+    for d in samples[::max(1, len(samples) // N_PER_DONOR)]:
+        check(split_structs[d].tobytes() == structs[d].tobytes(), f"{what} split {d}")
+    ms, bound = v2_decode_times(frame, dev)
+    n, s = frame.n, frame.n_samples
+    pd = list(per_donor_s.values())
+    out = {"records": n, "donors": s, "task_s": task_s, "records_per_s": n / task_s,
+           "donor_records_per_s": n * s / task_s, "peak_decode_mem_gib": peak / 2**30,
+           "split_s": split, "decode_device_ms": ms, "decode_bound_ms": bound,
+           "per_donor_task_s": {"donors": len(pd), "mean": float(np.mean(pd)),
+                                "sum": float(np.sum(pd))}}
+    log(f"[{card}] single pass {what}: {n:,} records x {s} donors in {task_s:.3f} s "
+        f"(convert_chromosome, host clock): {n / task_s:,.0f} records/s, "
+        f"{n * s / task_s:,.0f} donor-records/s; peak device memory of the decode "
+        f"{peak / 2**30:.3f} GiB; per-donor task (parse_snps) on {len(pd)} of its donors "
+        f"{np.mean(pd):.3f} s each, {np.sum(pd):.3f} s together")
+    log(f"[{card}] single pass {what} split (s, each stage to a synchronize): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    log(f"[{card}] single pass {what}: device decode {ms:.5f} ms a call (CUDA events), bound "
+        f"{bound:.5f} ms (bytes, 3.35 TB/s), {bound / ms:.3f} of it")
+    return out
+
+
+def single_pass_phase(card: str, tmp: str, seed: int, dev, ctx: dict) -> dict:
+    """Phase 14 (``ctx``: phase 8's files, donors and per-donor structs)."""
+    threads, samples, chr1 = ctx["threads"], ctx["samples"], ctx["chr1"]
+    t_phase = time.perf_counter()
+    kw = dict(cores=1, cxx_threads=threads, device=dev)
+    conv = VCFtoHDF5Converter("smoke_sp", tmp, os.path.join(tmp, "out_sp"), ctx["samples_path"],
+                              chromosomes=[1], **kw)
+    host = VCFtoHDF5Converter("smoke_sp", tmp, os.path.join(tmp, "out_sp_host"),
+                              ctx["samples_path"], chromosomes=[1], device_decode=False, **kw)
+    check(conv.config.single_pass and conv.config.direct_write, "default flags")
+
+    # -- chr1: the single pass against phase 8's per-donor structs
+    for fn in (decode_frames12_kernel, decode_frames_kernel, encode_windows_kernel):
+        fn.launches = 0
+    sp, sp_s, peak = collect_structs(conv, 1)
+    launches = _kernel_launches()
+    log(f"single pass chr1: convert_chromosome(1) for {len(sp)} donors in {sp_s:.2f} s; "
+        f"Hopper kernel launches {launches} (torch ops, no kernel, on this path)")
+    check(not any(launches.values()), "the single pass launched a Hopper kernel")
+    check(peak > 0, "the single pass decoded nothing on the card")
+    hs, host_s, _ = collect_structs(host, 1)
+    for d in samples:
+        want = ctx["structs"][d]
+        check(sp[d].dtype == want.dtype and sp[d].tobytes() == want.tobytes(),
+              f"single pass {d}: struct differs from the per-donor parse_snps")
+        check(hs[d].tobytes() == want.tobytes(), f"device_decode=False single pass {d}")
+    check_v2_decode(VCFSource(chr1, threads).frame_v2(samples, "chr1"), dev, "chr1 frame")
+    esc_path = os.path.join(tmp, "escapes.vcf.gz")
+    write_cohort_vcf(esc_path, {f"ctg{i:03d}": ESCAPE_CONTIG_LENGTH for i in range(N_ESCAPE_CONTIGS)},
+                     N_ESCAPE_CONTIGS * RECORDS_PER_CONTIG, samples, seed + 5)
+    esc = VCFSource(esc_path, threads).frame_v2("*")
+    check(len(esc.chroms) == N_ESCAPE_CONTIGS and esc.exc_idx.shape[0] > esc.n // 2,
+          "escape frame")
+    check_v2_decode(esc, dev, f"{N_ESCAPE_CONTIGS}-contig escapes")
+    try:
+        VCFSource(ctx["ctg_path"], threads).frame_v2(samples)
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        refused = ""
+    check("255" in refused, f"frame_v2 of the {N_CONTIGS}-contig file was not refused")
+    log(f"single pass checks: {len(samples)} chr1 structs byte-equal to phase 8's per-donor "
+        f"structs and to a device_decode=False single pass ({host_s:.2f} s); decode_frames_v2 "
+        f"on the card bit-equal to decode_frames_v2_numpy on the chr1 frame and on "
+        f"{N_ESCAPE_CONTIGS} contigs ({esc.exc_idx.shape[0]:,} of {esc.n:,} records escaped); "
+        f"the {N_CONTIGS}-contig file refused: {refused}")
+    out = {"card": card, "chr1": _timed_file(card, "chr1", chr1, "chr1", samples, dev, threads,
+                                             sp, sp_s, peak, ctx["task_s"])}
+
+    # -- cohort width: chr22's record count, 256 donors
+    cdir = os.path.join(tmp, "cohort")
+    os.makedirs(cdir)
+    donors = [f"HG{d:05d}" for d in range(N_COHORT_DONORS)]
+    donors_path = os.path.join(cdir, "samples.txt")
+    with open(donors_path, "w") as f:
+        f.write("\n".join(donors) + "\n")
+    path22 = os.path.join(cdir, "chr22.filtered.vcf.gz")
+    t0 = time.perf_counter()
+    kinds = write_cohort_vcf(path22, {"chr22": CHR22_LENGTH}, CHR22_RECORDS, donors, seed + 6)
+    write_s = time.perf_counter() - t0
+    log(f"cohort-width input: chr22 VCF, {CHR22_RECORDS:,} records over {CHR22_LENGTH:,} bp, "
+        f"{N_COHORT_DONORS} donors ({COHORT_CUT}), {os.path.getsize(path22) / 1e6:.1f} MB BGZF; "
+        f"records by kind {kinds}; written in {write_s:.1f} s")
+    conv22 = VCFtoHDF5Converter("smoke22", cdir, os.path.join(cdir, "out"), donors_path,
+                                chromosomes=[22], **kw)
+    per22 = VCFtoHDF5Converter("smoke22", cdir, os.path.join(cdir, "out_pd"), donors_path,
+                               chromosomes=[22], single_pass=False, **kw)
+    sp22, sp22_s, peak22 = collect_structs(conv22, 22)
+    pd_s = {}
+    for d in donors[::N_COHORT_DONORS // N_PER_DONOR]:
+        t0 = time.perf_counter()
+        want, n = per22.parse_snps(path22, d, "chr22")
+        pd_s[d] = time.perf_counter() - t0
+        check(n == CHR22_RECORDS and sp22[d].tobytes() == want.tobytes(),
+              f"cohort {d}: single-pass struct differs from the per-donor parse_snps")
+        check(0.8 * CHR22_RECORDS < len(want) < CHR22_RECORDS, f"cohort {d}: {len(want)} SNPs")
+    log(f"single pass cohort checks: {N_PER_DONOR} of {N_COHORT_DONORS} donors byte-equal to the "
+        f"per-donor parse_snps ({len(sp22[donors[0]]):,} SNPs for {donors[0]})")
+    out["cohort"] = _timed_file(card, f"chr22 x {N_COHORT_DONORS}", path22, "chr22", donors, dev,
+                                threads, sp22, sp22_s, peak22, pd_s)
+    out["cohort"]["write_s"] = write_s
+    log(f"single pass phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1410,7 +1646,9 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the device")
     log("reduced: sampler none (full GRCh38 chr1-chr12 lengths, 128 donors, "
         "100,000 regions, L=1000, B=64, K=128); converter 8 samples instead of the "
-        "2,504 of 1000 Genomes Phase 3 (records and chr1 length in full)")
+        "2,504 of 1000 Genomes Phase 3 (records and chr1 length in full); single-pass "
+        f"cohort file {N_COHORT_DONORS} donors ({COHORT_CUT}; chr22's records and length "
+        "in full)")
 
     # -- 3. main path -------------------------------------------------------
     cfg = SamplerConfig(seq_length=SEQ_LENGTH, batch_size=BATCH)
@@ -1512,7 +1750,9 @@ def main() -> int:
     # -- 7-10. the converter -------------------------------------------------
     dec = DecodeComparisons()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+    conv_dir = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)  # phases 7-10 and 14
+    try:
+        tmp = conv_dir.name
         ctx = converter_main_path(tmp, args.seed, dev, dec)
         src, donor = VCFSource(ctx["chr1"], ctx["threads"]), ctx["samples"][0]
         f12 = torch.from_numpy(src.frame12(donor, "chr1")[0]).to(dev)
@@ -1521,18 +1761,26 @@ def main() -> int:
         times = decode_times(card, ctx, f12, f64)
         del f12, f64
 
-    # -- 11-12. the window-kernel lab ----------------------------------------
-    lab_cmp = Comparisons()
-    lab_checks(sampler, args.seed, lab_cmp)
-    lab_times = lab_path(card, args.seed, sampler, lab_cmp)
+        # -- 11-12. the window-kernel lab ------------------------------------
+        lab_cmp = Comparisons()
+        lab_checks(sampler, args.seed, lab_cmp)
+        lab_times = lab_path(card, args.seed, sampler, lab_cmp)
 
-    # -- 13. the training path ----------------------------------------------
-    t0 = time.perf_counter()
-    train = train_path(args.seed, sampler, cmp)
-    train |= run_train_times(args.seed)
-    log(f"training path phase: {time.perf_counter() - t0:.1f} s")
-    log(json.dumps({"train": {"card": card, "config": "HaploFormerConfig() d_model 256, 8 heads, "
-                              "4 layers, bf16", "B": BATCH, "L": SEQ_LENGTH, **train}}))
+        # -- 13. the training path -------------------------------------------
+        t0 = time.perf_counter()
+        train = train_path(args.seed, sampler, cmp)
+        train |= run_train_times(args.seed)
+        log(f"training path phase: {time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"train": {"card": card, "config": "HaploFormerConfig() d_model 256, "
+                                  "8 heads, 4 layers, bf16", "B": BATCH, "L": SEQ_LENGTH,
+                                  **train}}))
+
+        # -- 14. the single-pass converter -----------------------------------
+        torch.cuda.empty_cache()
+        single_pass = single_pass_phase(card, tmp, args.seed, dev, ctx)
+        log(json.dumps({"single_pass": single_pass}))
+    finally:
+        conv_dir.cleanup()
 
     kernels = [{
         "name": "window_kernel",

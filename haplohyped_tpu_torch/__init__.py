@@ -5,10 +5,11 @@ It holds the training path (cohort and reference HDF5 to device tensors,
 the variant-aware haplotype window encode on a hand-written Hopper kernel
 beside its plain PyTorch version, the on-device sampler, and the
 HaploFormer model with its train step, fused sample-into-train step,
-checkpoints and ``train_on_sampler`` in ``models/``) and the VCF ->
-cohort-HDF5 converter's per-donor path
-(``pipeline.vcf_to_h5.VCFtoHDF5Converter``, its record decode on two more
-Hopper kernels).  It imports torch and numpy (h5py and libblosc only where
+checkpoints and ``train_on_sampler`` in ``models/``) and the VCF/BCF ->
+cohort-HDF5 converter (``pipeline.vcf_to_h5.VCFtoHDF5Converter``: the
+single pass, every donor of a chromosome from one framing decoded by torch
+ops, and the per-donor path, its record decode on two more Hopper
+kernels).  It imports torch and numpy (h5py and libblosc only where
 an HDF5 file is read or written), and nothing of JAX or ``haplohyped_tpu``.
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.

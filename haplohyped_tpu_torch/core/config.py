@@ -76,13 +76,13 @@ class ConvertConfig:
     vcf_pattern: str = VCF_FILENAME_PATTERN
     #: skip (donor, chrom) shards whose temp artifact already exists
     resume: bool = False
-    #: decode the framed records on the converter's device (the Hopper
-    #: kernels on CUDA, their plain versions on the CPU) instead of numpy
+    #: decode the framed records on the converter's device (torch ops and
+    #: the Hopper kernels on CUDA, the kernels' plain versions on the CPU)
+    #: instead of numpy
     device_decode: bool = True
     #: the raw-text tokenizer route; not ported (see ``ROADMAP.md``)
     use_tokenizer: bool = False
-    #: frame each chromosome once for every donor; not ported yet (see
-    #: ``ROADMAP.md``): the port runs the per-donor path
+    #: frame each chromosome once for every donor (False: once per donor)
     single_pass: bool = True
     #: stream datasets into the final file (single-pass only)
     direct_write: bool = True

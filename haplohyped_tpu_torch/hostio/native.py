@@ -1,36 +1,81 @@
-"""ctypes bindings of the native VCF framer (``cpp/hostio.cpp``).
+"""ctypes bindings of the native VCF/BCF reader (``cpp/hostio.cpp``,
+``cpp/bcf.cpp``).
 
-The port binds the four functions its converter calls -- ``hh_free``,
-``hh_vcf_samples``, ``hh_vcf_frame`` and ``hh_vcf_frame12`` -- of a library
-that :func:`haplohyped_tpu_torch.ops._build.load_hostio` compiles from the
+The port binds the functions its converter calls: the VCF framers
+(``hh_vcf_samples``, ``hh_vcf_frame``, ``hh_vcf_frame12``,
+``hh_vcf_frame_v2``), the BGZF block reader behind the tabix index builder
+(``hh_bgzf_*``), and the BCF parser (``hh_bcf_samples``, ``hh_bcf_parse``,
+``hh_bcf_parse_v2``), of a library that
+:func:`haplohyped_tpu_torch.ops._build.load_hostio` compiles from the
 repository's ``cpp/`` into the port's own build directory at first use.  A
-failed build raises; there is no silent drop to the Python framer.
+failed build raises; there is no silent drop to the Python framer.  Every
+buffer the library returns is freed with ``hh_free``, whatever happens.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 
-from haplohyped_tpu_torch.hostio.frame_format import REC12_SIZE, REC_SIZE
+from haplohyped_tpu_torch.hostio.frame_format import (
+    REC12_SIZE,
+    REC_SIZE,
+    V2_FIXED_SIZE,
+    FrameV2,
+)
 from haplohyped_tpu_torch.ops import _build
 
 _ERR_CAP = 512
+
+#: File decompressions made by framing calls (``vcf_frame``, ``vcf_frame12``,
+#: ``vcf_frame_v2``): the tests read it to hold the single-pass converter to
+#: one framing of a chromosome's file for every donor.  An indexed range
+#: framing counts as one; its block subset is ``FrameV2.blocks_decoded``.
+DECOMPRESS_COUNT = 0
+_count_lock = threading.Lock()
+
+
+def _count_decompress() -> None:
+    global DECOMPRESS_COUNT
+    with _count_lock:
+        DECOMPRESS_COUNT += 1
 
 
 @functools.cache
 def _load() -> ctypes.CDLL:
     lib = _build.load_hostio()
     s, i, p = ctypes.c_char_p, ctypes.c_int, ctypes.POINTER
-    out, i64 = p(ctypes.c_void_p), p(ctypes.c_int64)
-    lib.hh_free.argtypes = [ctypes.c_void_p]
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    out, pi64 = p(vp), p(i64)
+    lib.hh_free.argtypes = [vp]
     lib.hh_free.restype = None
-    lib.hh_vcf_samples.argtypes = [s, i, out, i64, s, i]
-    lib.hh_vcf_frame.argtypes = [s, s, s, i, out, i64, i64, s, i]
-    lib.hh_vcf_frame12.argtypes = [s, s, s, i, out, i64, i64, out, s, i]
-    for fn in (lib.hh_vcf_samples, lib.hh_vcf_frame, lib.hh_vcf_frame12):
+    lib.hh_vcf_samples.argtypes = [s, i, out, pi64, s, i]
+    lib.hh_vcf_frame.argtypes = [s, s, s, i, out, pi64, pi64, s, i]
+    lib.hh_vcf_frame12.argtypes = [s, s, s, i, out, pi64, pi64, out, s, i]
+    # path, samples, region, threads, c_lo, u_skip, c_hi, fixed, gt, n, s,
+    # exc_idx, exc_pos, n_exc, run_counts, run_ids, n_runs, chroms, samples,
+    # total_seen, blocks_decoded, err
+    lib.hh_vcf_frame_v2.argtypes = (
+        [s, s, s, i, i64, i64, i64, out, out, pi64, p(ctypes.c_int32), out, out, pi64,
+         out, out, pi64, out, out, pi64, pi64, s, i])
+    lib.hh_bgzf_open.argtypes = [s, pi64, pi64, s, i]
+    lib.hh_bgzf_open.restype = vp
+    lib.hh_bgzf_close.argtypes = [vp]
+    lib.hh_bgzf_close.restype = None
+    for fn in (lib.hh_bgzf_uoffset, lib.hh_bgzf_coffset, lib.hh_bgzf_block_at):
+        fn.argtypes = [vp, i64]
+        fn.restype = i64
+    lib.hh_bgzf_decode_range.argtypes = [vp, i64, i64, i, vp, out, pi64, s, i]
+    lib.hh_bcf_samples.argtypes = [s, i, out, pi64, s, i]
+    lib.hh_bcf_parse.argtypes = [s, s, i] + [out] * 10 + [pi64, out, s, i]
+    lib.hh_bcf_parse_v2.argtypes = [s, p(ctypes.c_int32), ctypes.c_int32, i] + [out] * 11 + [
+        pi64, out, s, i]
+    for fn in (lib.hh_vcf_samples, lib.hh_vcf_frame, lib.hh_vcf_frame12, lib.hh_vcf_frame_v2,
+               lib.hh_bgzf_decode_range, lib.hh_bcf_samples, lib.hh_bcf_parse,
+               lib.hh_bcf_parse_v2):
         fn.restype = ctypes.c_int
     return lib
 
@@ -39,21 +84,40 @@ def _arg(text: str | None) -> bytes | None:
     return text.encode() if text else None
 
 
+def _free_all(lib, ptrs) -> None:
+    for ptr in ptrs:
+        lib.hh_free(ptr)
+
+
+def _array(ptr: ctypes.c_void_p, dtype, count: int) -> np.ndarray:
+    """Copy ``count`` items of ``dtype`` out of a native buffer (not freed here)."""
+    if count == 0:
+        return np.zeros(0, dtype)
+    nbytes = count * np.dtype(dtype).itemsize
+    view = np.ctypeslib.as_array(ctypes.cast(ptr, ctypes.POINTER(ctypes.c_ubyte)),
+                                 shape=(nbytes,))
+    return view.view(dtype).copy()
+
+
+def _lines(ptr: ctypes.c_void_p) -> list[str]:
+    """A native newline-joined string as a list (not freed here)."""
+    raw = ctypes.string_at(ptr) if ptr.value else b""
+    return raw.decode().split("\n") if raw else []
+
+
 def _take(lib, ptr: ctypes.c_void_p, n: int, width: int) -> np.ndarray:
     """Copy ``n`` records of ``width`` bytes out of a native buffer, then free it."""
     try:
-        buf = ctypes.string_at(ptr, n * width) if n else b""
+        return _array(ptr, np.uint8, n * width).reshape(-1, width)
     finally:
         lib.hh_free(ptr)
-    return np.frombuffer(buf, dtype=np.uint8).reshape(-1, width).copy()
 
 
 def _take_lines(lib, ptr: ctypes.c_void_p) -> list[str]:
     try:
-        raw = ctypes.string_at(ptr) if ptr.value else b""
+        return _lines(ptr)
     finally:
         lib.hh_free(ptr)
-    return raw.decode().split("\n") if raw else []
 
 
 def vcf_samples(path: str, threads: int = 1) -> list[str]:
@@ -75,6 +139,7 @@ def vcf_frame(
     lib = _load()
     out, n, seen = ctypes.c_void_p(), ctypes.c_int64(), ctypes.c_int64()
     err = ctypes.create_string_buffer(_ERR_CAP)
+    _count_decompress()
     rc = lib.hh_vcf_frame(path.encode(), _arg(sample), _arg(region), threads,
                           ctypes.byref(out), ctypes.byref(n), ctypes.byref(seen),
                           err, _ERR_CAP)
@@ -96,6 +161,7 @@ def vcf_frame12(
     out, n, seen = ctypes.c_void_p(), ctypes.c_int64(), ctypes.c_int64()
     chroms = ctypes.c_void_p()
     err = ctypes.create_string_buffer(_ERR_CAP)
+    _count_decompress()
     rc = lib.hh_vcf_frame12(path.encode(), _arg(sample), _arg(region), threads,
                             ctypes.byref(out), ctypes.byref(n), ctypes.byref(seen),
                             ctypes.byref(chroms), err, _ERR_CAP)
@@ -105,3 +171,191 @@ def vcf_frame12(
         raise RuntimeError(err.value.decode() or f"hh_vcf_frame12 failed ({rc})")
     records = _take(lib, out, int(n.value), REC12_SIZE)
     return records, _take_lines(lib, chroms), int(seen.value)
+
+
+def vcf_frame_v2(
+    path: str,
+    samples: list[str] | str | None,
+    region: str | None,
+    threads: int = 1,
+    c_lo: int = -1,
+    u_skip: int = 0,
+    c_hi: int = -1,
+) -> FrameV2:
+    """Frame a VCF natively into the v2 layout: one pass, every sample asked for.
+
+    ``samples``: None/[] = no genotypes; ``"*"`` = every header sample; a list
+    or a single name = those samples in slot order.  ``c_lo >= 0`` selects
+    indexed range mode: only the BGZF blocks from compressed offset ``c_lo``
+    (records from in-block offset ``u_skip``) to ``c_hi`` are inflated, plus
+    the header's.  Raises ``ValueError`` where the records kept hold > 255
+    distinct chroms (rc 3), ``RuntimeError`` on any other failure."""
+    lib = _load()
+    if samples is None or isinstance(samples, str):
+        samples_arg = _arg(samples)
+    else:
+        samples_arg = "\n".join(samples).encode() if samples else None
+    fixed, gt, exc_idx, exc_pos = (ctypes.c_void_p() for _ in range(4))
+    run_counts, run_ids, chroms, names = (ctypes.c_void_p() for _ in range(4))
+    n, n_exc, n_runs, seen, nblk = (ctypes.c_int64() for _ in range(5))
+    s = ctypes.c_int32()
+    err = ctypes.create_string_buffer(_ERR_CAP)
+    _count_decompress()
+    rc = lib.hh_vcf_frame_v2(
+        path.encode(), samples_arg, _arg(region), threads, c_lo, u_skip, c_hi,
+        ctypes.byref(fixed), ctypes.byref(gt), ctypes.byref(n), ctypes.byref(s),
+        ctypes.byref(exc_idx), ctypes.byref(exc_pos), ctypes.byref(n_exc),
+        ctypes.byref(run_counts), ctypes.byref(run_ids), ctypes.byref(n_runs),
+        ctypes.byref(chroms), ctypes.byref(names), ctypes.byref(seen), ctypes.byref(nblk),
+        err, _ERR_CAP)
+    if rc == 3:
+        raise ValueError(err.value.decode())
+    if rc != 0:
+        raise RuntimeError(err.value.decode() or f"hh_vcf_frame_v2 failed ({rc})")
+    try:
+        nn, ss, ne, nr = int(n.value), int(s.value), int(n_exc.value), int(n_runs.value)
+        return FrameV2(
+            fixed=_array(fixed, np.uint8, nn * V2_FIXED_SIZE).reshape(nn, V2_FIXED_SIZE),
+            gt=_array(gt, np.uint8, nn * ss).reshape(nn, ss),
+            exc_idx=_array(exc_idx, np.int64, ne),
+            exc_pos=_array(exc_pos, np.uint32, ne),
+            run_counts=_array(run_counts, np.int64, nr),
+            run_ids=_array(run_ids, np.uint8, nr),
+            chroms=_lines(chroms),
+            samples=_lines(names),
+            total_seen=int(seen.value),
+            blocks_decoded=int(nblk.value),
+        )
+    finally:
+        _free_all(lib, (fixed, gt, exc_idx, exc_pos, run_counts, run_ids, chroms, names))
+
+
+def bcf_samples(path: str, threads: int = 1) -> list[str]:
+    """Sample names of a BCF header."""
+    lib = _load()
+    out, n = ctypes.c_void_p(), ctypes.c_int64()
+    err = ctypes.create_string_buffer(_ERR_CAP)
+    rc = lib.hh_bcf_samples(path.encode(), threads, ctypes.byref(out), ctypes.byref(n),
+                            err, _ERR_CAP)
+    if rc != 0:
+        raise RuntimeError(err.value.decode() or f"hh_bcf_samples failed ({rc})")
+    return _take_lines(lib, out)
+
+
+#: the shared per-record columns of ``hh_bcf_parse``/``hh_bcf_parse_v2``,
+#: in argument order, with their dtypes
+_BCF_COLUMNS = (("rid", np.int32), ("start", np.int32), ("stop", np.int32),
+                ("ref_char", np.uint8), ("alt_char", np.uint8), ("ref_len", np.int32),
+                ("alt_len", np.int32))
+
+
+def bcf_parse(path: str, sample: str | None, threads: int = 1) -> dict:
+    """Parse a BCF into decoded per-record columns for one sample (or none)
+    and the contig name table (``"contigs"``)."""
+    lib = _load()
+    ptrs = [ctypes.c_void_p() for _ in range(10)]
+    n, contigs = ctypes.c_int64(), ctypes.c_void_p()
+    err = ctypes.create_string_buffer(_ERR_CAP)
+    rc = lib.hh_bcf_parse(path.encode(), _arg(sample), threads,
+                          *(ctypes.byref(p) for p in ptrs), ctypes.byref(n),
+                          ctypes.byref(contigs), err, _ERR_CAP)
+    if rc != 0:
+        raise RuntimeError(err.value.decode() or f"hh_bcf_parse failed ({rc})")
+    try:
+        nn = int(n.value)
+        names = [k for k, _ in _BCF_COLUMNS] + ["phase1", "phase2", "bcf_flags"]
+        dtypes = [d for _, d in _BCF_COLUMNS] + [np.int8, np.int8, np.uint8]
+        out = {k: _array(p, d, nn) for k, d, p in zip(names, dtypes, ptrs)}
+        out["contigs"] = _lines(contigs)
+        return out
+    finally:
+        _free_all(lib, ptrs + [contigs])
+
+
+def bcf_parse_v2(path: str, want_idx: np.ndarray, threads: int = 1) -> dict:
+    """One-pass multi-sample BCF parse: the shared per-record columns, the
+    SNP flags, and ``(N, S)`` ``phase1``/``phase2``/``valid`` for the samples
+    at header indices ``want_idx`` (slot order), and the contig table."""
+    lib = _load()
+    want = np.ascontiguousarray(want_idx, dtype=np.int32)
+    S = int(want.shape[0])
+    ptrs = [ctypes.c_void_p() for _ in range(11)]
+    n, contigs = ctypes.c_int64(), ctypes.c_void_p()
+    err = ctypes.create_string_buffer(_ERR_CAP)
+    rc = lib.hh_bcf_parse_v2(path.encode(), want.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                             S, threads, *(ctypes.byref(p) for p in ptrs), ctypes.byref(n),
+                             ctypes.byref(contigs), err, _ERR_CAP)
+    if rc != 0:
+        raise RuntimeError(err.value.decode() or f"hh_bcf_parse_v2 failed ({rc})")
+    try:
+        nn = int(n.value)
+        out = {k: _array(p, d, nn) for (k, d), p in zip(_BCF_COLUMNS, ptrs)}
+        out["snp_flags"] = _array(ptrs[7], np.uint8, nn)
+        for k, d, p in zip(("phase1", "phase2", "valid"), (np.int8, np.int8, np.uint8),
+                           ptrs[8:]):
+            out[k] = _array(p, d, nn * S).reshape(nn, S)
+        out["contigs"] = _lines(contigs)
+        return out
+    finally:
+        _free_all(lib, ptrs + [contigs])
+
+
+class BgzfRangeReader:
+    """A BGZF file's block table, and block ranges inflated into numpy
+    buffers (with the newline offsets of each range)."""
+
+    def __init__(self, path: str):
+        self._lib, self._h = _load(), None
+        total, nblocks = ctypes.c_int64(), ctypes.c_int64()
+        err = ctypes.create_string_buffer(_ERR_CAP)
+        self._h = self._lib.hh_bgzf_open(path.encode(), ctypes.byref(total),
+                                         ctypes.byref(nblocks), err, _ERR_CAP)
+        if not self._h:
+            raise RuntimeError(err.value.decode() or "hh_bgzf_open failed")
+        self.total_usize = int(total.value)
+        self.n_blocks = int(nblocks.value)
+
+    def uoffset(self, i: int) -> int:
+        """Uncompressed offset of block ``i`` (the total size past the last)."""
+        return int(self._lib.hh_bgzf_uoffset(self._h, i))
+
+    def coffset(self, i: int) -> int:
+        """Compressed offset of block ``i``."""
+        return int(self._lib.hh_bgzf_coffset(self._h, i))
+
+    def block_at(self, coffset: int) -> int:
+        """Index of the block whose compressed offset contains ``coffset``."""
+        return int(self._lib.hh_bgzf_block_at(self._h, coffset))
+
+    def decode_range(self, lo: int, hi: int, threads: int, out: np.ndarray,
+                     out_off: int = 0) -> np.ndarray:
+        """Inflate blocks ``[lo, hi)`` into ``out[out_off:]``; returns the
+        newline offsets relative to the range's start (int64)."""
+        size = self.uoffset(hi) - self.uoffset(lo)
+        if out.shape[0] - out_off < size:
+            raise ValueError(f"buffer holds {out.shape[0] - out_off} bytes, the range {size}")
+        nl, n_nl = ctypes.c_void_p(), ctypes.c_int64()
+        err = ctypes.create_string_buffer(_ERR_CAP)
+        dst = out[out_off:].ctypes.data_as(ctypes.c_void_p)
+        rc = self._lib.hh_bgzf_decode_range(self._h, lo, hi, threads, dst, ctypes.byref(nl),
+                                            ctypes.byref(n_nl), err, _ERR_CAP)
+        try:
+            if rc != 0:
+                raise RuntimeError(err.value.decode() or "hh_bgzf_decode_range failed")
+            return _array(nl, np.int64, int(n_nl.value))
+        finally:
+            self._lib.hh_free(nl)
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.hh_bgzf_close(self._h)
+            self._h = None
+
+    def __enter__(self) -> "BgzfRangeReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self):
+        self.close()

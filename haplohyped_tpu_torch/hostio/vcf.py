@@ -1,11 +1,13 @@
 """VCF record source: the native framer, or the pure-Python one on request.
 
-The port's ``VCFSource`` (``haplohyped_tpu.hostio.vcf``) for the per-donor
-converter: sample names, contig names, and framing of one sample's records
-into the 64-byte or the 12-byte layout, optionally restricted to a region
-(``chrom`` or ``chrom:beg-end``).  The native framer is built from ``cpp/``
-at first use and a failed build raises; the pure-Python framer runs only
-when the caller passes ``use_native=False``.
+The port's ``VCFSource`` (``haplohyped_tpu.hostio.vcf``): sample names,
+contig names, and framing into the 64-byte or the 12-byte layout (one
+sample's records) or the v2 layout (every requested sample's records in one
+pass), optionally restricted to a region (``chrom`` or ``chrom:beg-end``).
+A v2 framing of a region that a sibling ``.tbi``/``.csi`` indexes inflates
+only the BGZF blocks that cover it.  The native framer is built from
+``cpp/`` at first use and a failed build raises; the pure-Python framer
+runs only when the caller passes ``use_native=False``.
 """
 
 from __future__ import annotations
@@ -17,10 +19,13 @@ import numpy as np
 from haplohyped_tpu_torch.hostio import native
 from haplohyped_tpu_torch.hostio.frame_format import (
     REC_SIZE,
+    FrameV2,
     FramedRecords,
+    frame_v2_py,
     frames12_from_frames64,
     pack_frame,
 )
+from haplohyped_tpu_torch.hostio.tabix import region_block_range
 
 
 def _read_text(path: str) -> bytes:
@@ -40,20 +45,6 @@ def _parse_region(region: str | None) -> tuple[str, int, int]:
         b, e = span.split("-", 1)
         return chrom, (int(b) - 1) if b else -1, int(e) if e else -1
     return region, -1, -1
-
-
-def is_bcf(path: str) -> bool:
-    """True if the file is a BCF2, plain or BGZF-wrapped (its text, or its
-    first gzip member, starts with ``BCF\\x02``)."""
-    with open(path, "rb") as f:
-        head = f.read(4)
-    if head.startswith(b"\x1f\x8b"):
-        try:
-            with gzip.open(path, "rb") as f:
-                head = f.read(4)
-        except (OSError, EOFError):
-            return False
-    return head == b"BCF\x02"
 
 
 class VCFSource:
@@ -114,6 +105,35 @@ class VCFSource:
         framed = self._py_frame(sample, region)
         records, chroms = frames12_from_frames64(framed.records)
         return records, chroms, framed.total_seen
+
+    def frame_v2(
+        self,
+        samples: list[str] | str | None = None,
+        region: str | None = None,
+        use_index: bool = True,
+    ) -> FrameV2:
+        """Frame data lines into the v2 layout: 5-byte records and an
+        ``(n, S)`` GT byte matrix, every requested sample in ONE pass of the
+        file (the reference re-reads it per donor, ``vcf_to_h5.py:142-152``).
+
+        ``samples``: None = no genotypes, ``"*"`` = every header sample, a
+        name or a list = those samples in slot order.  Where ``region`` names
+        a chromosome that a sibling ``.tbi``/``.csi`` indexes and
+        ``use_index`` is on, only the BGZF blocks covering it are inflated
+        (``FrameV2.blocks_decoded`` says how many).  Raises ``ValueError``
+        where the records kept hold > 255 distinct chroms."""
+        c_lo, u_skip, c_hi = -1, 0, -1
+        if use_index and region:
+            chrom, beg, end = _parse_region(region)
+            span = region_block_range(self.path, chrom, beg, end) if chrom else None
+            if span is not None:
+                c_lo, u_skip, c_hi = span[0] >> 16, span[0] & 0xFFFF, span[1] >> 16
+        if self.use_native:
+            return native.vcf_frame_v2(self.path, samples, region, self.threads,
+                                       c_lo=c_lo, u_skip=u_skip, c_hi=c_hi)
+        if isinstance(samples, str):
+            samples = [samples]
+        return frame_v2_py(_read_text(self.path), samples, region)
 
     def _py_frame(self, sample: str | None, region: str | None) -> FramedRecords:
         text = _read_text(self.path)

@@ -1,12 +1,22 @@
 """VCF record decoding: the plain PyTorch versions and the host helpers.
 
-The port of ``haplohyped_tpu.ops.vcf_decode`` for the per-donor converter:
+The port of ``haplohyped_tpu.ops.vcf_decode``:
 
 - :func:`decode_frames` and :func:`decode_frames12` decode ``(N, 64)`` and
   ``(N, 12)`` uint8 frame matrices into variant columns: POS digits ->
   0-based ``start`` and ``stop = start + rlen``, the biallelic-SNP
   predicate, and the genotype's allele presence (a missing genotype is
-  coded (1, 0) with a missing flag), phase and validity.
+  coded (1, 0) with a missing flag), phase and validity;
+  :func:`decode_planes12` is :func:`decode_frames12` on the transposed
+  ``(12, N)`` byte planes.
+- :func:`decode_frames_v2` decodes the v2 layout of the single-pass
+  converter (every sample of a record at once): POS from u16 deltas and the
+  escape arrays, chrom ids from the run lengths, and ``(N, S)`` genotype
+  columns.  It is :func:`decode_v2_records` (the per-record columns) and
+  :func:`decode_v2_genotypes` (elementwise over a GT byte matrix of any
+  shape, so the converter can decode it a sample block at a time).  These
+  are torch ops on the frame's device; no hand-written kernel, as the JAX
+  package's is XLA code, not a Pallas kernel.
 - :func:`decode_frames12_packed` and :func:`decode_frames_packed` give the
   same function in the int32 wire formats of the Hopper kernels in
   :mod:`haplohyped_tpu_torch.ops.decode_kernel` (3 and 7 columns a record).
@@ -14,8 +24,10 @@ The port of ``haplohyped_tpu.ops.vcf_decode`` for the per-donor converter:
   hold each kernel bit-equal to them.
 - numpy helpers: :func:`unpack12_columns` and :func:`unpack64_columns` turn
   the wire formats back into the decode dict on the host;
-  :func:`decode_frames12_numpy` and :func:`decode_frames_numpy` are the JAX
-  package's numpy twins (the converter's ``device_decode=False`` path).
+  :func:`decode_frames12_numpy`, :func:`decode_frames_numpy` and
+  :func:`decode_frames_v2_numpy` are the JAX package's numpy twins (the
+  converter's ``device_decode=False`` path); :func:`pad_v2_sides` pads a v2
+  frame's side arrays with inert entries.
 
 POS arithmetic follows the JAX package's uint32 bit for bit, malformed
 records included: the torch versions compute in int64 and keep the low 32
@@ -63,6 +75,21 @@ from haplohyped_tpu_torch.hostio.frame_format import (
     REC_SIZE,
     REF_LEN_OFF,
     REF_OFF,
+    V2_ALT_OFF,
+    V2_FLAGS_OFF,
+    V2_GT_CLASS_MISSING,
+    V2_REF_OFF,
+    V2_STOP_SENTINEL,
+    V2F_ALT1,
+    V2F_POS_ESCAPE,
+    V2F_REF1,
+    V2F_WELL_FORMED,
+    V2G_DIPLOID,
+    V2G_HAS_GT,
+    V2G_SEP_PIPE,
+    V2G_SEP_SHIFT,
+    V2G_SEP_SLASH,
+    V2_FIXED_SIZE,
 )
 from haplohyped_tpu_torch.ops.onehot import ascii_to_codes
 
@@ -284,6 +311,123 @@ def decode_frames12_packed(
     return _as_int32(d["start"]), meta, ref_len
 
 
+def decode_planes12(planes: torch.Tensor, with_sample: bool = True) -> dict[str, torch.Tensor]:
+    """:func:`decode_frames12` on the transposed wire layout: ``(12, N)``
+    uint8 byte planes (plane ``k`` is byte ``k`` of every record)."""
+    if planes.dim() != 2 or planes.shape[0] != REC12_SIZE:
+        raise ValueError(f"planes must be (12, N) uint8, got {tuple(planes.shape)}")
+    return decode_frames12(planes.t(), with_sample)
+
+
+def decode_v2_records(
+    fixed: torch.Tensor,
+    exc_idx: torch.Tensor,
+    exc_pos: torch.Tensor,
+    run_counts: torch.Tensor,
+    run_ids: torch.Tensor,
+) -> dict[str, torch.Tensor]:
+    """The per-record columns of the v2 decode, on ``fixed``'s device.
+
+    ``fixed`` is ``(N, 5)`` uint8; ``exc_idx`` the escaped records' indices
+    (entries outside ``[0, N)`` are inert pads), ``exc_pos`` their absolute
+    POS (uint32 values in any integer dtype torch converts, int64 say),
+    ``run_counts``/``run_ids`` the chrom runs (zero-width runs are inert).
+
+    POS: the u16 deltas are summed, and each escaped record re-anchors the
+    chain: ``pos = cumsum(delta) + cumsum(scatter(correction))``, the
+    correction at an escape being the step from the previous anchor's offset
+    to the one that puts POS at ``exc_pos`` (uint32 arithmetic, so a
+    "negative" re-anchor wraps: computed here in int64 and masked)."""
+    f = _frames(fixed, V2_FIXED_SIZE)
+    n, dev = f.shape[0], f.device
+    flags = f[:, V2_FLAGS_OFF]
+    escape = (flags & V2F_POS_ESCAPE) != 0
+
+    delta = f[:, 0].long() | (f[:, 1].long() << 8)
+    base = torch.where(escape, 0, delta).cumsum(0) & _MASK32
+    corr = torch.zeros(n, dtype=torch.long, device=dev)
+    ei = exc_idx.to(device=dev, dtype=torch.long)
+    if n and ei.numel():
+        s_tgt = (exc_pos.to(device=dev, dtype=torch.long) - base[ei.clamp(0, n - 1)]) & _MASK32
+        c = s_tgt - torch.cat([s_tgt.new_zeros(1), s_tgt[:-1]])
+        # pads (index N) add nothing; masking, not selecting, keeps the host
+        # out of the decode (a boolean selection waits for the device)
+        real = (ei >= 0) & (ei < n)
+        corr.index_add_(0, torch.where(real, ei, 0), torch.where(real, c, 0))
+    pos = (base + corr.cumsum(0)) & _MASK32
+    start = (pos - 1) & _MASK32
+    ref1 = (flags & V2F_REF1) != 0
+    # multi-base REFs get the sentinel: v2 carries no REF length
+    stop = torch.where(ref1, (start + 1) & _MASK32, V2_STOP_SENTINEL)
+
+    ref_char = f[:, V2_REF_OFF]
+    alt_char = f[:, V2_ALT_OFF]
+    alt1 = (flags & V2F_ALT1) != 0
+
+    # chrom ids from the run lengths
+    cum = run_counts.to(device=dev, dtype=torch.long).cumsum(0)
+    rid = torch.searchsorted(cum, torch.arange(n, device=dev), right=True)
+    ids = run_ids.to(device=dev, dtype=torch.uint8)
+    chrom_id = ids[rid.clamp(0, max(ids.shape[0] - 1, 0))]
+
+    return {
+        "start": start,
+        "stop": stop,
+        "ref_char": ref_char,
+        "alt_char": alt_char,
+        "ref_code": ascii_to_codes(ref_char),
+        "alt_code": ascii_to_codes(alt_char),
+        "ref1": ref1,
+        "alt1": alt1,
+        "snp_mask": ref1 & alt1 & _is_acgt(alt_char),
+        "well_formed": (flags & V2F_WELL_FORMED) != 0,
+        "chrom_id": chrom_id,
+    }
+
+
+def decode_v2_genotypes(gt: torch.Tensor, well_formed: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The genotype columns of the v2 decode, elementwise over a GT byte
+    matrix of any shape (``(N, S)``, or a transposed block ``(s, N)``), with
+    ``well_formed`` broadcast against it (``(N, 1)`` or ``(1, N)``): the
+    reference's allele-presence semantics (``vcfpp.h:508-531``), a missing
+    allele coding (1, 0)."""
+    if gt.dtype != torch.uint8:
+        raise ValueError(f"gt must be uint8, got {gt.dtype}")
+    a0 = gt & 3
+    a2 = (gt >> 2) & 3
+    sep = (gt >> V2G_SEP_SHIFT) & 3
+    has_gt = (gt & V2G_HAS_GT) != 0
+    sep_ok = (sep == V2G_SEP_PIPE) | (sep == V2G_SEP_SLASH)
+    diploid = has_gt & ((gt & V2G_DIPLOID) != 0) & sep_ok
+    missing = diploid & ((a0 == V2_GT_CLASS_MISSING) | (a2 == V2_GT_CLASS_MISSING))
+    return {
+        "phase1": torch.where(missing, 1, (a0 != 0).to(torch.int8)).to(torch.int8),
+        "phase2": torch.where(missing, 0, (a2 != 0).to(torch.int8)).to(torch.int8),
+        "phased": diploid & (sep == V2G_SEP_PIPE),
+        "missing": missing,
+        "valid": well_formed & diploid,
+    }
+
+
+def decode_frames_v2(
+    fixed: torch.Tensor,
+    gt: torch.Tensor,
+    exc_idx: torch.Tensor,
+    exc_pos: torch.Tensor,
+    run_counts: torch.Tensor,
+    run_ids: torch.Tensor,
+) -> dict[str, torch.Tensor]:
+    """Decode a v2 frame, ``(N, 5)`` fixed records and an ``(N, S)`` GT
+    matrix, on the frame's device: the per-record columns of
+    :func:`decode_v2_records` and the ``(N, S)`` columns of
+    :func:`decode_v2_genotypes`, with the JAX package's keys.  ``stop`` is
+    ``start + 1`` under the ref1 predicate and ``V2_STOP_SENTINEL`` else."""
+    rec = decode_v2_records(fixed, exc_idx, exc_pos, run_counts, run_ids)
+    if gt.dim() != 2 or gt.shape[0] != fixed.shape[0]:
+        raise ValueError(f"gt must be (N, S) with N = {fixed.shape[0]}, got {tuple(gt.shape)}")
+    return rec | decode_v2_genotypes(gt, rec["well_formed"][:, None])
+
+
 def decoded_to_numpy(dec: DecodedVariants | dict) -> dict[str, np.ndarray]:
     """Decode output -> host numpy columns in the JAX package's dtypes
     (``start``/``stop`` uint32)."""
@@ -466,5 +610,104 @@ def decode_frames_numpy(frames: np.ndarray, with_sample: bool = True) -> dict[st
         "phased": phased,
         "missing": missing,
         "snp_mask": snp_mask,
+        "valid": valid,
+    }
+
+
+def pad_v2_sides(
+    frame, bucket: int = 8
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """A FrameV2's side arrays padded to power-of-two buckets with inert
+    entries (``exc_idx = N`` scatters nothing, ``run_counts = 0`` runs are
+    zero-width): ``(exc_idx, exc_pos, run_counts, run_ids)``."""
+    n = frame.n
+
+    def bucketed(size: int) -> int:
+        b = bucket
+        while b < size:
+            b *= 2
+        return b
+
+    eb = bucketed(max(1, frame.exc_idx.shape[0]))
+    rb = bucketed(max(1, frame.run_counts.shape[0]))
+    exc_idx = np.full(eb, n, dtype=np.int64)
+    exc_idx[: frame.exc_idx.shape[0]] = frame.exc_idx
+    exc_pos = np.zeros(eb, dtype=np.uint32)
+    exc_pos[: frame.exc_pos.shape[0]] = frame.exc_pos
+    run_counts = np.zeros(rb, dtype=np.int64)
+    run_counts[: frame.run_counts.shape[0]] = frame.run_counts
+    run_ids = np.zeros(rb, dtype=np.uint8)
+    run_ids[: frame.run_ids.shape[0]] = frame.run_ids
+    return exc_idx, exc_pos, run_counts, run_ids
+
+
+def decode_frames_v2_numpy(
+    fixed: np.ndarray,
+    gt: np.ndarray,
+    exc_idx: np.ndarray,
+    exc_pos: np.ndarray,
+    run_counts: np.ndarray,
+    run_ids: np.ndarray,
+) -> dict[str, np.ndarray]:
+    """Pure-numpy twin of :func:`decode_frames_v2` (the host decode path)."""
+    fixed = np.ascontiguousarray(fixed, dtype=np.uint8)
+    n = fixed.shape[0]
+    flags = fixed[:, V2_FLAGS_OFF]
+    escape = (flags & V2F_POS_ESCAPE) != 0
+
+    delta = fixed[:, 0].astype(np.uint32) | (fixed[:, 1].astype(np.uint32) << 8)
+    d = np.where(escape, np.uint32(0), delta)
+    base = np.cumsum(d, dtype=np.uint32)
+    real = exc_idx < n
+    ei = exc_idx[real].astype(np.int64)
+    s_tgt = exc_pos[real].astype(np.uint32) - base[np.clip(ei, 0, max(n - 1, 0))]
+    c = s_tgt - np.concatenate([np.zeros(1, np.uint32), s_tgt[:-1]])
+    corr = np.zeros(n, np.uint32)
+    np.add.at(corr, ei, c)
+    pos = base + np.cumsum(corr, dtype=np.uint32)
+    start = pos - 1
+    ref1 = (flags & V2F_REF1) != 0
+    stop = np.where(ref1, start + 1, np.uint32(V2_STOP_SENTINEL))
+
+    ref_char = fixed[:, V2_REF_OFF]
+    alt_char = fixed[:, V2_ALT_OFF]
+    is_acgt = np.isin(alt_char, np.frombuffer(b"ACGT", dtype=np.uint8))
+    alt1 = (flags & V2F_ALT1) != 0
+    snp_mask = ref1 & alt1 & is_acgt
+    well_formed = (flags & V2F_WELL_FORMED) != 0
+
+    cum = np.cumsum(run_counts.astype(np.int64))
+    rid = np.searchsorted(cum, np.arange(n, dtype=np.int64), side="right")
+    chrom_id = run_ids[np.clip(rid, 0, max(run_ids.shape[0] - 1, 0))]
+
+    gt = np.ascontiguousarray(gt, dtype=np.uint8)
+    a0 = gt & 3
+    a2 = (gt >> 2) & 3
+    sep = (gt >> V2G_SEP_SHIFT) & 3
+    has_gt = (gt & V2G_HAS_GT) != 0
+    sep_ok = (sep == V2G_SEP_PIPE) | (sep == V2G_SEP_SLASH)
+    diploid = has_gt & ((gt & V2G_DIPLOID) != 0) & sep_ok
+    missing = diploid & ((a0 == V2_GT_CLASS_MISSING) | (a2 == V2_GT_CLASS_MISSING))
+    phase1 = np.where(missing, 1, a0 != 0).astype(np.int8)
+    phase2 = np.where(missing, 0, a2 != 0).astype(np.int8)
+    phased = diploid & (sep == V2G_SEP_PIPE)
+    valid = well_formed[:, None] & diploid
+
+    return {
+        "start": start,
+        "stop": stop,
+        "ref_char": ref_char,
+        "alt_char": alt_char,
+        "ref_code": BASE_LUT[ref_char],
+        "alt_code": BASE_LUT[alt_char],
+        "ref1": ref1,
+        "alt1": alt1,
+        "snp_mask": snp_mask,
+        "well_formed": well_formed,
+        "chrom_id": chrom_id,
+        "phase1": phase1,
+        "phase2": phase2,
+        "phased": phased,
+        "missing": missing,
         "valid": valid,
     }

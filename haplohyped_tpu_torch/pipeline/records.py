@@ -1,7 +1,8 @@
 """Decode columns -> the reference's SNP structured array.
 
-The port's copy of ``haplohyped_tpu.pipeline.records`` for the per-donor
-converter (the v2 assembly comes with the single-pass converter).
+The port's copy of ``haplohyped_tpu.pipeline.records``: one donor's struct
+from a per-donor decode, and every donor's from one single-pass (v2 or BCF)
+decode.
 
 The struct layout (``chrom S5, start u4, stop u4, ref S10, alt S10,
 phase1 i1, phase2 i1``) is pinned by the reference writer
@@ -90,6 +91,63 @@ def snp_struct_from_frames(
     """Framed-record variant: chrom columns come from the frame matrix."""
     chrom_bytes = frames[:, CHROM_OFF : CHROM_OFF + CHROM_CAP]
     return snp_struct_from_decoded(decoded, chrom_bytes, with_sample)
+
+
+def snp_structs_from_v2(
+    decoded: dict[str, np.ndarray],
+    chrom_table: list[str],
+    samples: list[str],
+    chrom_filter: str | None = None,
+) -> dict[str, np.ndarray]:
+    """Every donor's SNP struct from ONE decode of all samples.
+
+    ``decoded`` holds host numpy columns in the schema of
+    ``decode_frames_v2`` (``phase1``/``phase2``/``valid`` are ``(N, S)``;
+    views of ``(S, N)`` arrays make each donor's column contiguous).  The
+    shared record columns (chrom, start, stop, ref, alt) of the records that
+    pass the SNP predicate are written into one struct once; a donor's
+    struct is the rows of it that donor's ``valid`` keeps, with that donor's
+    phases.  A donor with no kept SNP gets an empty struct.  Replaces the
+    reference's per-donor re-parse (``vcf_to_h5.py:142-152``)."""
+    snp = np.asarray(decoded["snp_mask"])
+    chrom_id = np.asarray(decoded["chrom_id"])
+    if chrom_filter is not None and chrom_table:
+        want = np.array([c == chrom_filter for c in chrom_table], dtype=bool)
+        snp = snp & want[chrom_id]
+    start = np.asarray(decoded["start"])
+    stop = np.asarray(decoded["stop"])
+
+    # the v2 layout has no REF length: stop holds only under the ref1
+    # predicate (multi-base REFs carry V2_STOP_SENTINEL).  snp_mask implies
+    # ref1, so a sentinel past the keep mask means a caller bypassed the
+    # predicate: fail instead of writing wrong intervals (End() = pos + rlen,
+    # reference cpp/vcfpp.h:1118-1127)
+    if snp.any() and (stop[snp] != start[snp] + 1).any():
+        raise ValueError(
+            "v2 decode: kept rows carry the multi-base-REF stop sentinel; "
+            "the SNP predicate was not applied before struct assembly"
+        )
+
+    rows = np.nonzero(snp)[0]
+    shared = np.zeros(rows.shape[0], dtype=SNP_STRUCT_DTYPE)
+    if chrom_table:
+        shared["chrom"] = np.array(chrom_table, dtype="S5")[chrom_id[rows]]
+    _set_u32(shared, "start", start[rows])
+    _set_u32(shared, "stop", stop[rows])
+    for field in ("ref", "alt"):
+        chars = np.asarray(decoded[f"{field}_char"])[rows]
+        shared[field] = np.ascontiguousarray(chars).view("S1").astype("S10")
+
+    valid, phase1, phase2 = (np.asarray(decoded[k]) for k in ("valid", "phase1", "phase2"))
+    out: dict[str, np.ndarray] = {}
+    for s, donor in enumerate(samples):
+        keep = valid[:, s][rows]
+        st = shared[keep]
+        kept = rows[keep]
+        st["phase1"] = phase1[:, s][kept]
+        st["phase2"] = phase2[:, s][kept]
+        out[donor] = st
+    return out
 
 
 def snp_struct_from_frames12(

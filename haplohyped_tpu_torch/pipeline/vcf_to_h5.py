@@ -1,27 +1,35 @@
-"""VCF -> cohort-HDF5 conversion, the per-donor path, on PyTorch.
+"""VCF -> cohort-HDF5 conversion on PyTorch.
 
-The port of ``haplohyped_tpu.pipeline.vcf_to_h5`` for ``single_pass=False``
-(the reference's shape): one task per (donor, chromosome) frames that
-donor's records, decodes them, assembles the SNP struct and writes a temp
-shard ``{cohort}_tmp_donor_{id}_chr_{n}.h5`` with group
-``donor_{id}/chr_{n}/snp_data``; :meth:`VCFtoHDF5Converter.merge_h5_files`
-copies the shards into ``{out_dir}/{cohort}.h5``.  Donors fan out over a
-thread pool; every failed task is recorded, and ``resume=True`` skips shards
-whose temp file exists.
+The port of ``haplohyped_tpu.pipeline.vcf_to_h5``.  The output is
+``{out_dir}/{cohort}.h5`` with one dataset ``donor_{id}/chr_{n}/snp_data``
+per (donor, chromosome), Blosc-compressed as the reference writes it.  Two
+paths make it:
 
-The decode runs on ``device`` (CUDA unless the caller asks for the CPU):
+- **single pass** (``single_pass=True``, the default): one task per
+  chromosome frames that chromosome's file ONCE for every donor (the v2
+  layout; only the BGZF blocks of the chromosome where a ``.tbi``/``.csi``
+  sits beside the file), decodes it with torch ops on ``device``, assembles
+  every donor's SNP struct from that one decode, and writes them: straight
+  into the final file under a lock (``direct_write=True``, the default), or
+  into temp shards that :meth:`VCFtoHDF5Converter.merge_h5_files` copies
+  (``direct_write=False``, and always with ``resume=True``).  Chromosomes
+  fan out over a thread pool.  A BCF input is parsed once for every donor
+  on the host and goes through the same struct assembly and writes.
+- **per donor** (``single_pass=False``, the reference's shape): one task per
+  (donor, chromosome) frames that donor's records (12-byte frames, the
+  decode12 Hopper kernel; 64-byte frames and the decode64 kernel where a
+  parse without a region meets more than 255 contigs), assembles the struct
+  and writes a temp shard ``{cohort}_tmp_donor_{id}_chr_{n}.h5``; donors fan
+  out over a thread pool and the shards are merged.  A BCF input is parsed
+  on the host.
 
-- 12-byte frames (the default): upload, the decode12 Hopper kernel
-  (``ops/decode_kernel.py``), three int32 columns back, unpack on the host;
-- 64-byte frames, where the 12-byte framer refuses more than 255 contigs
-  (a :meth:`~VCFtoHDF5Converter.parse_snps` without a region, of a file
-  with that many): the same with the decode64 kernel and seven columns;
-- an empty frame, and ``device_decode=False``, decode with numpy.
-
-On ``device="cpu"`` the kernels' plain PyTorch versions run instead.  There
-is no device probe and no host rerouting: a CUDA failure raises.  Not
-ported yet, each raising ``NotImplementedError``: ``single_pass=True`` and
-BCF input (``ROADMAP.md``).  The raw-text tokenizer route is not ported.
+Every failed task is recorded and the rest of the cohort converts;
+``resume=True`` skips (donor, chromosome) shards whose temp file exists.
+On ``device="cpu"`` the kernels' plain PyTorch versions run.  An empty frame,
+and ``device_decode=False``, decode with numpy.  There is no device probe
+and no host rerouting: a CUDA failure raises.  ``h5py`` is imported only
+where a file is written, so ``convert_chromosome(c, writer=...)`` runs
+without it.  The raw-text tokenizer route is not ported.
 """
 
 from __future__ import annotations
@@ -46,7 +54,14 @@ from haplohyped_tpu_torch.core.constants import (
     cohort_group_path,
 )
 from haplohyped_tpu_torch.core.metrics import GLOBAL_METRICS
-from haplohyped_tpu_torch.hostio.vcf import VCFSource, is_bcf
+from haplohyped_tpu_torch.hostio.bcf import (
+    bcf_decoded_columns,
+    bcf_decoded_v2,
+    bcf_samples,
+    is_bcf,
+)
+from haplohyped_tpu_torch.hostio.frame_format import FrameV2
+from haplohyped_tpu_torch.hostio.vcf import VCFSource
 from haplohyped_tpu_torch.ops.decode_kernel import (
     decode_frames12_kernel,
     decode_frames_kernel,
@@ -54,27 +69,38 @@ from haplohyped_tpu_torch.ops.decode_kernel import (
 from haplohyped_tpu_torch.ops.vcf_decode import (
     decode_frames12_numpy,
     decode_frames_numpy,
+    decode_frames_v2_numpy,
+    decode_v2_genotypes,
+    decode_v2_records,
     unpack12_columns,
     unpack64_columns,
 )
 from haplohyped_tpu_torch.pipeline.records import (
+    snp_struct_from_decoded,
     snp_struct_from_frames,
     snp_struct_from_frames12,
+    snp_structs_from_v2,
 )
 from haplohyped_tpu_torch.storage.blosc import cohort_compression_kwargs, set_blosc_nthreads
 from haplohyped_tpu_torch.storage.fastwrite import write_dataset_direct
 
 logger = logging.getLogger("haplohyped_tpu_torch.vcf_to_h5")
 
-SINGLE_PASS_NOT_PORTED = (
-    "single_pass=True (the single-pass v2 converter) is not ported yet; it is "
-    "the next item of ROADMAP.md. Pass single_pass=False (--per-donor)."
-)
-BCF_NOT_PORTED = "BCF input is not ported yet; it is queued in ROADMAP.md."
-
-#: serialises device decodes across the donor threads (one upload, launch
+#: serialises device decodes across the worker threads (one upload, decode
 #: and copy back at a time; the launch counters stay exact)
 _device_lock = threading.Lock()
+
+#: bytes of one sample block of the v2 genotype decode (records x samples):
+#: a block's ~10 temporaries of that size stay on the card beside the frame,
+#: so a 1000 Genomes chromosome (chr1: 6.5 M records x 2,504 donors, 16.2 GB
+#: of genotype bytes) decodes within the card's memory
+GT_BLOCK_BYTES = 1 << 30
+
+#: the v2 decode's columns that struct assembly reads: per record, and
+#: per (record, sample)
+V2_RECORD_COLUMNS = ("start", "stop", "ref_char", "alt_char", "chrom_id", "snp_mask",
+                     "well_formed")
+V2_GENOTYPE_COLUMNS = {"phase1": np.int8, "phase2": np.int8, "valid": np.bool_}
 
 
 @dataclass
@@ -107,6 +133,46 @@ def _decode(frames: np.ndarray, device: torch.device | None) -> dict[str, np.nda
     return unpack64_columns(*(c.cpu().numpy() for c in cols))
 
 
+def upload_v2(frame: FrameV2, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """h2d: a v2 frame's arrays on ``device``, ``(fixed, gt, exc_idx,
+    exc_pos, run_counts, run_ids)`` (``exc_pos`` as int64)."""
+    arrays = (frame.fixed, frame.gt, frame.exc_idx, frame.exc_pos.astype(np.int64),
+              frame.run_counts, frame.run_ids)
+    return tuple(torch.from_numpy(a).to(device) for a in arrays)
+
+
+def decode_v2_to_host(fixed, gt, exc_idx, exc_pos, run_counts, run_ids) -> dict[str, np.ndarray]:
+    """Decode an uploaded v2 frame on its device and copy back the columns
+    struct assembly reads.
+
+    The per-record columns decode once.  The genotype columns decode a block
+    of samples at a time (``GT_BLOCK_BYTES``), each block transposed on the
+    device to ``(samples, N)`` and copied into ``(S, N)`` host arrays: the
+    ``(N, S)`` columns returned are views of those, so each donor's column is
+    contiguous for struct assembly."""
+    rec = decode_v2_records(fixed, exc_idx, exc_pos, run_counts, run_ids)
+    out = {k: rec[k].cpu().numpy() for k in V2_RECORD_COLUMNS}
+    out["start"], out["stop"] = out["start"].astype(np.uint32), out["stop"].astype(np.uint32)
+    n, s = gt.shape
+    host = {k: np.empty((s, n), dtype) for k, dtype in V2_GENOTYPE_COLUMNS.items()}
+    step = max(1, GT_BLOCK_BYTES // max(n, 1))
+    well_formed = rec["well_formed"][None, :]
+    for a in range(0, s, step):
+        block = decode_v2_genotypes(gt[:, a:a + step].t().contiguous(), well_formed)
+        for k, arr in host.items():
+            torch.from_numpy(arr[a:a + step]).copy_(block[k])
+    return out | {k: arr.T for k, arr in host.items()}
+
+
+def _decode_v2(frame: FrameV2, device: torch.device | None) -> dict[str, np.ndarray]:
+    """Decode a v2 frame (every sample at once) on ``device``, or with
+    numpy where ``device`` is None or the frame is empty."""
+    if device is None or frame.n == 0:
+        return decode_frames_v2_numpy(frame.fixed, frame.gt, frame.exc_idx, frame.exc_pos,
+                                      frame.run_counts, frame.run_ids)
+    return decode_v2_to_host(*upload_v2(frame, device))
+
+
 class VCFtoHDF5Converter:
     """Convert per-chromosome cohort VCFs into one genotype HDF5."""
 
@@ -126,8 +192,6 @@ class VCFtoHDF5Converter:
         direct_write: bool = True,
         device: str | torch.device = "cuda",
     ):
-        if single_pass:
-            raise NotImplementedError(SINGLE_PASS_NOT_PORTED)
         self.device = resolve_device(device)
         cfg = ConvertConfig(
             cohort_name=cohort_name,
@@ -165,7 +229,7 @@ class VCFtoHDF5Converter:
         with open(sample_list_path, "r") as f:
             return [line.strip() for line in f]
 
-    # -- per-task unit --------------------------------------------------
+    # -- per-donor unit -------------------------------------------------
 
     def tmp_h5_path(self, donor_id: str, chromosome: int | str) -> str:
         return os.path.join(
@@ -173,16 +237,23 @@ class VCFtoHDF5Converter:
             f"{self.cohort_name}_tmp_donor_{donor_id}_chr_{chromosome}.h5",
         )
 
+    def _write_shard(self, donor_id: str, chromosome: int | str, snp_struct: np.ndarray) -> None:
+        """One (donor, chromosome) struct into its temp HDF5 shard."""
+        import h5py
+
+        with h5py.File(self.tmp_h5_path(donor_id, chromosome), "w") as h5f:
+            group = h5f.create_group(cohort_group_path(donor_id, chromosome))
+            write_dataset_direct(group, SNP_DATASET_NAME, snp_struct,
+                                 cohort_compression_kwargs(snp_struct.shape[0]),
+                                 workers=self.cxx_threads)
+
     def genotype_vcf_to_hdf5(
         self, data_path: str, donor_id: str, chromosome: int | str
     ) -> TaskResult:
         """Convert one (donor, chromosome) into its temp HDF5 shard."""
-        import h5py
-
         res = TaskResult(donor_id=donor_id, chromosome=chromosome)
         t0 = time.time()
-        tmp_h5_file = self.tmp_h5_path(donor_id, chromosome)
-        if self.config.resume and os.path.exists(tmp_h5_file):
+        if self.config.resume and os.path.exists(self.tmp_h5_path(donor_id, chromosome)):
             res.skipped = True
             return res
         try:
@@ -194,16 +265,8 @@ class VCFtoHDF5Converter:
                 res.n_snps = int(snp_struct.shape[0])
                 GLOBAL_METRICS.count("records_seen", n_records)
                 GLOBAL_METRICS.count("snps", res.n_snps)
-
-                with GLOBAL_METRICS.timer("h5_write"), h5py.File(tmp_h5_file, "w") as h5f:
-                    group = h5f.create_group(cohort_group_path(donor_id, chromosome))
-                    write_dataset_direct(
-                        group,
-                        SNP_DATASET_NAME,
-                        snp_struct,
-                        cohort_compression_kwargs(snp_struct.shape[0]),
-                        workers=self.cxx_threads,
-                    )
+                with GLOBAL_METRICS.timer("h5_write"):
+                    self._write_shard(donor_id, chromosome, snp_struct)
                 GLOBAL_METRICS.count("h5_bytes", snp_struct.nbytes)
                 logger.info(
                     "Loaded %d SNPs for sample %s and chromosome %s",
@@ -225,9 +288,11 @@ class VCFtoHDF5Converter:
         :meth:`run` does; ``None`` frames every contig of the file.  The
         12-byte route refuses more than 255 distinct contigs *after* that
         filter, so only a parse without a region of such a file takes the
-        64-byte route (as in the JAX package)."""
+        64-byte route (as in the JAX package).  A BCF is parsed on the host."""
         if is_bcf(data_path):
-            raise NotImplementedError(BCF_NOT_PORTED)
+            decoded = bcf_decoded_columns(data_path, donor_id, threads=self.cxx_threads)
+            struct = snp_struct_from_decoded(decoded, decoded["chrom"], chrom_filter=chrom_str)
+            return struct, int(decoded["start"].shape[0])
         src = VCFSource(data_path, threads=self.cxx_threads)
         if self.config.device_decode:
             try:
@@ -261,11 +326,128 @@ class VCFtoHDF5Converter:
             for c in self.chromosomes
         ]
 
+    # -- single-pass unit -----------------------------------------------
+
+    def convert_chromosome(self, chromosome: int | str, writer=None) -> list[TaskResult]:
+        """Frame one chromosome's file ONCE (v2 layout), take every donor's
+        genotypes from that pass, decode on the converter's device, and
+        write every donor's struct.
+
+        ``writer(donor_id, chromosome, snp_struct)`` is the destination (the
+        direct-to-final writer of :meth:`run`, or any callable); None writes
+        the per-(donor, chromosome) temp shards that :meth:`merge_h5_files`
+        copies.  Donors whose shard exists are skipped under ``resume``;
+        donors missing from the file's header fail alone.  Replaces the
+        reference's loop that re-reads the whole file for every donor
+        (``vcf_to_h5.py:142-152``)."""
+        data_path = self.config.vcf_path(chromosome)
+        chrom_str = f"chr{chromosome}"
+        donors = [d for d in self.donor_ids if d]
+        t0 = time.time()
+        results: list[TaskResult] = []
+        todo = donors
+        if self.config.resume:
+            todo = [d for d in donors if not os.path.exists(self.tmp_h5_path(d, chromosome))]
+            results += [TaskResult(donor_id=d, chromosome=chromosome, skipped=True)
+                        for d in donors if d not in todo]
+            if not todo:
+                return results
+
+        if is_bcf(data_path):
+            # one native record walk for every donor; the per-donor path only
+            # where the chrom-id table overflows (>255 contigs)
+            try:
+                return self._convert_chromosome_bcf(
+                    data_path, chromosome, chrom_str, todo, results, writer, t0)
+            except ValueError as exc:
+                logger.info("BCF single-pass unavailable for %s (%s); using the per-donor path",
+                            data_path, exc)
+            for d in todo:
+                results.append(self.genotype_vcf_to_hdf5(data_path, d, chromosome))
+            return results
+
+        src = VCFSource(data_path, threads=self.cxx_threads)
+        todo = self._isolate_missing(todo, src.samples(), chromosome, results, "VCF")
+        if not todo:
+            return results
+        with GLOBAL_METRICS.timer("parse"):
+            frame = src.frame_v2(samples=todo, region=chrom_str)
+            if self.config.device_decode:
+                with _device_lock:
+                    decoded = _decode_v2(frame, self.device)
+            else:
+                decoded = _decode_v2(frame, None)
+            structs = snp_structs_from_v2(decoded, frame.chroms, frame.samples,
+                                          chrom_filter=chrom_str)
+        GLOBAL_METRICS.count("records_seen", frame.total_seen)
+        self._write_donor_structs(structs, todo, chromosome, chrom_str, frame.total_seen,
+                                  results, writer, t0)
+        return results
+
+    def _isolate_missing(self, todo, header, chromosome, results, kind: str) -> list[str]:
+        """Record a failed task for each donor of ``todo`` absent from the
+        file's ``header``; returns the donors present."""
+        present = set(header)
+        for d in todo:
+            if d not in present:
+                err = RuntimeError(f"sample not found in {kind} header: {d}")
+                logger.error("donor %s chr%s: %s", d, chromosome, err)
+                results.append(TaskResult(donor_id=d, chromosome=chromosome, error=err))
+        return [d for d in todo if d in present]
+
+    def _convert_chromosome_bcf(
+        self, data_path, chromosome, chrom_str, todo, results, writer, t0
+    ) -> list[TaskResult]:
+        """The BCF leg of the single-pass unit: one native record walk gives
+        every donor's genotypes; struct assembly and writes are the VCF
+        leg's.  Raises ``ValueError`` past 255 contigs."""
+        todo = self._isolate_missing(todo, bcf_samples(data_path, self.cxx_threads), chromosome,
+                                     results, "BCF")
+        if not todo:
+            return results
+        with GLOBAL_METRICS.timer("parse"):
+            decoded, contigs = bcf_decoded_v2(data_path, todo, self.cxx_threads)
+            if len(contigs) > 255:
+                raise ValueError(f"{len(contigs)} contigs exceeds the chrom-id table")
+            structs = snp_structs_from_v2(decoded, contigs, todo, chrom_filter=chrom_str)
+        n_seen = int(decoded["start"].shape[0])
+        GLOBAL_METRICS.count("records_seen", n_seen)
+        self._write_donor_structs(structs, todo, chromosome, chrom_str, n_seen, results,
+                                  writer, t0)
+        return results
+
+    def _write_donor_structs(
+        self, structs, todo, chromosome, chrom_str, total_seen, results, writer, t0
+    ) -> None:
+        """Write each donor's struct (``writer``, or a temp shard), a failed
+        write failing that donor alone."""
+        per_donor_s = (time.time() - t0) / max(len(todo), 1)
+        with GLOBAL_METRICS.timer("h5_write"):
+            for d in todo:
+                res = TaskResult(donor_id=d, chromosome=chromosome, n_records=total_seen,
+                                 seconds=per_donor_s)
+                try:
+                    snp_struct = structs[d]
+                    res.n_snps = int(snp_struct.shape[0])
+                    GLOBAL_METRICS.count("snps", res.n_snps)
+                    if writer is not None:
+                        writer(d, chromosome, snp_struct)
+                    else:
+                        self._write_shard(d, chromosome, snp_struct)
+                    GLOBAL_METRICS.count("h5_bytes", snp_struct.nbytes)
+                    logger.info("Loaded %d SNPs for sample %s and chromosome %s",
+                                res.n_snps, d, chrom_str)
+                except Exception as e:
+                    logger.error("donor %s chr%s write failed: %s", d, chromosome, e)
+                    res.error = e
+                results.append(res)
+
     # -- merge ----------------------------------------------------------
 
     def merge_h5_files(self, mode: str = "w") -> None:
         """Merge the temp shards into ``{out_dir}/{cohort_name}.h5`` (the h5py
-        copy keeps each dataset's compression pipeline)."""
+        copy keeps each dataset's compression pipeline).  ``mode="a"`` adds
+        them to a file the direct writer already filled."""
         import h5py
 
         final_h5_file = self.config.final_h5_path
@@ -287,28 +469,67 @@ class VCFtoHDF5Converter:
 
     # -- run ------------------------------------------------------------
 
+    def _fan_out(self, fn, items, kind: str, *args) -> None:
+        """``fn(item, *args)`` for every item on ``cores`` threads; a failed
+        item is recorded as one failed TaskResult and the rest go on."""
+        failed = []
+        with ThreadPoolExecutor(max_workers=self.cores) as executor:
+            futures = {executor.submit(fn, x, *args): x for x in items}
+            for fut in as_completed(futures):
+                x = futures[fut]
+                try:
+                    self.results.extend(fut.result())
+                except Exception as exc:
+                    logger.error("%s %s failed: %s", kind, x, exc)
+                    donor, chrom = ("*", x) if kind == "chromosome" else (x, "*")
+                    self.results.append(TaskResult(donor_id=donor, chromosome=chrom, error=exc))
+                    failed.append(x)
+        if failed:
+            logger.error("%d/%d %ss failed: %s", len(failed), len(items), kind, failed)
+
     def run(self, cleanup: bool = True) -> list[TaskResult]:
-        """Convert every donor (a thread pool of ``cores``), merge, and
-        remove the temp shards unless a task failed."""
+        """Convert every chromosome for every donor (single pass: a thread
+        pool of ``cores`` over chromosomes; per donor: over donors), write
+        the cohort file, and remove the temp shards unless a task failed.
+
+        The single pass with ``direct_write`` (and no ``resume``) streams each
+        dataset into the final file under one lock, and merges only what a
+        BCF fallback left in temp shards; otherwise the shards are merged."""
         start_time = time.time()
+        cfg = self.config
+        direct = cfg.single_pass and cfg.direct_write and not cfg.resume
+        final_file = None
+        writer = None
+        if direct:
+            import h5py
+
+            final_file = h5py.File(cfg.final_h5_path, "w")
+            write_lock = threading.Lock()
+
+            def writer(donor_id, chromosome, snp_struct):
+                with write_lock:
+                    group = final_file.require_group(cohort_group_path(donor_id, chromosome))
+                    if SNP_DATASET_NAME in group:
+                        del group[SNP_DATASET_NAME]
+                    write_dataset_direct(group, SNP_DATASET_NAME, snp_struct,
+                                         cohort_compression_kwargs(snp_struct.shape[0]),
+                                         workers=self.cxx_threads)
+
         try:
-            donor_ids = [d for d in self.donor_ids if d]
-            with ThreadPoolExecutor(max_workers=self.cores) as executor:
-                futures = {executor.submit(self.process_donor, d): d for d in donor_ids}
-                failed = []
-                for fut in as_completed(futures):
-                    donor = futures[fut]
-                    try:
-                        self.results.extend(fut.result())
-                    except Exception as exc:
-                        logger.error("donor %s failed: %s", donor, exc)
-                        self.results.append(TaskResult(donor_id=donor, chromosome="*", error=exc))
-                        failed.append(donor)
-                if failed:
-                    logger.error("%d/%d donors failed: %s", len(failed), len(donor_ids), failed)
+            if cfg.single_pass:
+                self._fan_out(self.convert_chromosome, list(self.chromosomes), "chromosome",
+                              writer)
+            else:
+                self._fan_out(self.process_donor, [d for d in self.donor_ids if d], "donor")
 
             merge_start = time.time()
-            self.merge_h5_files()
+            if direct:
+                final_file.close()
+                final_file = None
+                if any(f.endswith(".h5") for f in os.listdir(self.tmp_dir)):
+                    self.merge_h5_files(mode="a")
+            else:
+                self.merge_h5_files()
             wall = time.time() - start_time
             n_var = sum(r.n_snps for r in self.results)
             logger.info("Time taken to merge HDF5 files: %.2f seconds", time.time() - merge_start)
@@ -319,9 +540,17 @@ class VCFtoHDF5Converter:
             GLOBAL_METRICS.log_summary("vcf_to_h5")
             return self.results
         finally:
+            if final_file is not None:  # an exception left the file open
+                final_file.close()
             had_errors = any(r.error is not None for r in self.results)
             if cleanup and not had_errors:
                 shutil.rmtree(self.tmp_dir, ignore_errors=True)
+            elif had_errors and direct:
+                logger.warning(
+                    "direct-write output %s is incomplete; rerun with resume=True "
+                    "(redoes every task through temp shards, then rebuilds the cohort file)",
+                    cfg.final_h5_path,
+                )
             elif had_errors:
                 logger.warning(
                     "temp shards kept in %s — rerun with resume=True to skip "
@@ -345,20 +574,21 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true", help="Skip existing temp shards")
     ap.add_argument("--device-decode", dest="device_decode",
                     action=argparse.BooleanOptionalAction, default=True,
-                    help="Decode on --device (the Hopper kernels on CUDA) instead of numpy")
+                    help="Decode on --device (torch ops, and the Hopper kernels of the "
+                    "per-donor path, on CUDA) instead of numpy")
     ap.add_argument("--chromosomes", default="auto",
                     help="Comma-separated chromosome numbers, or 'auto' to use the "
                     "chr{N}.filtered.vcf.gz files present in --vcf (default)")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--single-pass", dest="single_pass", action="store_true", default=True,
-                      help="Frame each chromosome once for every donor (not ported yet)")
+                      help="Frame each chromosome once for every donor (default)")
     mode.add_argument("--per-donor", dest="single_pass", action="store_false",
                       help="One parse per donor, the reference's shape")
     write = ap.add_mutually_exclusive_group()
     write.add_argument("--direct-write", dest="direct_write", action="store_true", default=True,
-                       help="Stream datasets into the final file (single-pass only)")
+                       help="Stream datasets into the final file (single-pass only; default)")
     write.add_argument("--merge-write", dest="direct_write", action="store_false",
-                       help="Temp file per shard + merge")
+                       help="Temp file per shard + merge (implied by --resume)")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return ap
 

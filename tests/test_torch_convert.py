@@ -220,19 +220,6 @@ def test_one_bad_donor_does_not_sink_cohort(test_data_dir, tmp_path):
         assert list(f.keys()) == [f"donor_{samples[0]}"]
 
 
-def test_single_pass_and_bcf_are_not_ported(test_data_dir, tmp_path):
-    from tests.bcf_writer import vcf_text_to_bcf
-
-    samples = str(test_data_dir / "ipscs_samples_test.txt")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        VCFtoHDF5Converter("co", str(test_data_dir), str(tmp_path), samples, 1, 1, device="cpu")
-    bcf = vcf_text_to_bcf(str(test_data_dir / "chr22.filtered.vcf.gz"), str(tmp_path / "x.bcf"))
-    conv = VCFtoHDF5Converter("co", str(tmp_path), str(tmp_path), samples, 1, 1,
-                              single_pass=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        conv.parse_snps(bcf, corpus_samples(test_data_dir)[0], "chr22")
-
-
 def test_cuda_without_a_card_raises(test_data_dir, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -244,14 +231,18 @@ def test_cuda_without_a_card_raises(test_data_dir, tmp_path):
 
 
 def test_cli_per_donor_on_the_cpu(test_data_dir, tmp_path):
-    args = ["--cohort_name", "cli", "--vcf", str(test_data_dir), "--outdir", str(tmp_path),
+    """The CLI on its default flags (single pass, direct write) and with
+    ``--per-donor`` write the same file; a directory with no VCF exits."""
+    args = ["--cohort_name", "cli", "--vcf", str(test_data_dir), "--outdir", str(tmp_path / "sp"),
             "--sample_list", str(test_data_dir / "ipscs_samples_test.txt"), "--cores", "2",
-            "--cxx_threads", "2"]
-    with pytest.raises(NotImplementedError, match="--per-donor"):
-        main(args + ["--device", "cpu"])
-    main(args + ["--per-donor", "--device", "cpu"])
-    with h5py.File(tmp_path / "cli.h5", "r") as f:
+            "--cxx_threads", "2", "--device", "cpu"]
+    main(args)
+    per_donor = args[:5] + [str(tmp_path / "pd")] + args[6:] + ["--per-donor"]
+    main(per_donor)
+    with h5py.File(tmp_path / "pd" / "cli.h5", "r") as f:
         assert len(f.keys()) == 3
         assert all(f[k]["chr_22/snp_data"].shape == (1000,) for k in f.keys())
-    with pytest.raises(SystemExit):
-        main(args[:3] + [str(tmp_path / "none")] + args[4:] + ["--per-donor", "--device", "cpu"])
+    assert_same_file(tmp_path / "sp" / "cli.h5", tmp_path / "pd" / "cli.h5")
+    for flags in ([], ["--per-donor"]):
+        with pytest.raises(SystemExit):
+            main(args[:3] + [str(tmp_path / "none")] + args[4:] + flags)

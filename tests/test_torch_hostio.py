@@ -19,7 +19,8 @@ from haplohyped_tpu.hostio.frame_format import frames12_to_fields as jax_12_fiel
 
 from haplohyped_tpu_torch.hostio import native
 from haplohyped_tpu_torch.hostio.frame_format import frames12_from_frames64, frames12_to_fields
-from haplohyped_tpu_torch.hostio.vcf import VCFSource, is_bcf
+from haplohyped_tpu_torch.hostio.bcf import is_bcf
+from haplohyped_tpu_torch.hostio.vcf import VCFSource
 from haplohyped_tpu_torch.ops import _build
 
 from chip_smoke import DECODE_EDGE_VCF

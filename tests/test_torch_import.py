@@ -40,7 +40,8 @@ def test_importing_every_module_leaves_jax_out():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.splitlines()[-1])
     for name in ("data.sampler", "ops.window_kernel", "ops.decode_kernel", "ops.vcf_decode",
-                 "hostio.native", "hostio.vcf", "pipeline.vcf_to_h5", "storage.fastwrite",
+                 "hostio.native", "hostio.vcf", "hostio.tabix", "hostio.bcf",
+                 "pipeline.vcf_to_h5", "storage.fastwrite",
                  "ops.window_lab", "tools.window_kernel_lab", "models.haploformer",
                  "models.train"):
         assert f"haplohyped_tpu_torch.{name}" in res["imported"]
