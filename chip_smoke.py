@@ -105,10 +105,28 @@ Phases (any failure exits non-zero; nothing is caught):
    decode's peak device memory, the task split into framing, h2d, device
    decode, d2h and struct assembly (each ended by a synchronize), and the
    decode's device ms (CUDA events) beside its byte bound.
+15. The reference path.  A FASTA written from ``--seed`` under the build
+   directory: chr1 and chr22 at GRCh38's lengths, 60 bases a line, soft-masked
+   runs over about half the bases, ~7% N, a sprinkle of IUPAC codes (305 MB).
+   ``build_fai`` on it (records equal to the writer's); chr1 fetched through
+   ``FaidxFasta`` and ``NativeFasta``, byte-equal; ``encode_onehot_and_codes(
+   device="cuda")`` on chr1's 248,956,422 bases bit-equal to ``encode_host``,
+   timed end to end and split into h2d, device ops (CUDA events, beside a
+   byte bound of 7 bytes a base) and d2h, with its peak device memory;
+   ``GenomeTensors.from_fasta`` equal to the card's codes; a
+   ``DeviceHaplotypeSampler`` on that genome (16 donors, SNVs at ~1.2 per kb,
+   100,000 regions) drawing 4 batches at B=64, L=1000, with the window
+   kernel's launch count set to 0 just before and read just after, each batch
+   bit-equal to the plain version; ``pack_2bit_device`` on chr1's codes equal
+   to numpy ``pack_2bit`` and round-tripped, ``gather_window_2bit`` at 518
+   windows equal to the codes' slices; ``doctor.run_checks()`` printed, every
+   check passing but the two that need h5py and libblosc (neither is on the
+   card's machine).
 
 The lines before the last are a JSON object ``{"train": {...}}`` of phase
-13's numbers, one ``{"single_pass": {...}}`` of phase 14's, then one with one
-entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
+13's numbers, one ``{"single_pass": {...}}`` of phase 14's, one
+``{"reference": {...}}`` of phase 15's, then one with one entry per kernel;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -131,7 +149,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from haplohyped_tpu_torch import DeviceHaplotypeSampler, SamplerConfig
+from haplohyped_tpu_torch import DeviceHaplotypeSampler, GenomeTensors, SamplerConfig
 from haplohyped_tpu_torch.core.constants import (
     INT32_MAX,
     N_CODE,
@@ -144,7 +162,10 @@ from haplohyped_tpu_torch.core.timing import (
     card_line,
     device_ms,
 )
+from haplohyped_tpu_torch.hostio.fai import FaidxFasta, build_fai
+from haplohyped_tpu_torch.hostio.fasta import FastaReader
 from haplohyped_tpu_torch.hostio.frame_format import REC12_SIZE, REC_SIZE
+from haplohyped_tpu_torch.hostio.native import NativeFasta
 from haplohyped_tpu_torch.hostio.vcf import VCFSource
 from haplohyped_tpu_torch.models.haploformer import (
     HaploFormer,
@@ -168,6 +189,12 @@ from haplohyped_tpu_torch.ops.decode_kernel import (
 from haplohyped_tpu_torch.ops.haplotype_window import (
     HaplotypeWindows,
     encode_haplotype_windows,
+)
+from haplohyped_tpu_torch.ops.onehot import ascii_to_codes, codes_to_onehot
+from haplohyped_tpu_torch.ops.pack import (
+    gather_window_2bit,
+    pack_2bit_device,
+    unpack_2bit_device,
 )
 from haplohyped_tpu_torch.ops.vcf_decode import (
     decode_frames12_packed,
@@ -194,6 +221,8 @@ from haplohyped_tpu_torch.ops.window_lab import (
     lab_plain,
     lab_smem_bytes,
 )
+from haplohyped_tpu_torch.pipeline.doctor import run_checks
+from haplohyped_tpu_torch.pipeline.fasta_encoder import encode_host, encode_onehot_and_codes
 from haplohyped_tpu_torch.pipeline.records import snp_struct_from_frames12, snp_structs_from_v2
 from haplohyped_tpu_torch.pipeline.vcf_to_h5 import (
     V2_GENOTYPE_COLUMNS,
@@ -202,7 +231,8 @@ from haplohyped_tpu_torch.pipeline.vcf_to_h5 import (
     upload_v2,
 )
 from haplohyped_tpu_torch.tools import window_kernel_lab as lab
-from haplohyped_tpu_torch.tools.deployment import make_state
+from haplohyped_tpu_torch.tools.deployment import N_REGIONS, make_cohort, make_regions, make_state
+from haplohyped_tpu_torch.utils.bitpack import pack_2bit
 
 SEQ_LENGTH, BATCH, K_MAX = 1000, 64, 128
 
@@ -1597,6 +1627,235 @@ def single_pass_phase(card: str, tmp: str, seed: int, dev, ctx: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the reference path
+# ---------------------------------------------------------------------------
+
+#: GRCh38 primary-assembly lengths of the FASTA's two records
+GRCH38_REF = {"chr1": 248_956_422, "chr22": 50_818_468}
+FASTA_LINE = 60
+#: about 7% of each record in N runs (a leading 10,000-bp run and one run of
+#: several Mb), soft-masked runs of ~300 bp over about half the bases, and
+#: one IUPAC code (R, Y, K, M, S, W) in ~50,000 bases, as in UCSC's hg38.fa
+N_SHARE, N_LEAD, SOFT_RUN, IUPAC_EVERY = 0.07, 10_000, 300, 50_000
+REF_DONORS, REF_BATCHES, PACK_STARTS = 16, 4, 256
+#: one ASCII byte read, one code and five one-hot bytes written a base
+ENCODE_BYTES_PER_BASE = 7
+
+
+def reference_bases(n: int, rng) -> np.ndarray:
+    """``n`` ASCII bases of one record: random A/C/G/T, soft-masked
+    (lowercase) runs, N runs and a sprinkle of IUPAC codes."""
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n, dtype=np.uint8)]
+    runs = rng.geometric(1 / SOFT_RUN, size=2 * n // SOFT_RUN + 64)
+    seq[np.repeat(np.arange(runs.size) % 2 == 1, runs)[:n]] |= 0x20
+    iupac = rng.integers(0, n, n // IUPAC_EVERY)
+    seq[iupac] = np.frombuffer(b"RYKMSW", np.uint8)[rng.integers(0, 6, iupac.size)]
+    seq[:N_LEAD] = ord("N")
+    run = int(n * N_SHARE) - N_LEAD
+    at = int(rng.integers(N_LEAD, n - run))
+    seq[at:at + run] = ord("N")
+    return seq
+
+
+def write_reference_fasta(path: str, seed: int) -> dict:
+    """A FASTA of ``GRCH38_REF``'s records at 60 bases a line.  Returns, by
+    record, the bases written and the ``.fai`` fields (length, offset,
+    linebases, linewidth) the writer knows."""
+    rng = np.random.default_rng(seed)
+    out, pos = {}, 0
+    with open(path, "wb") as f:
+        for name, n in GRCH38_REF.items():
+            seq = reference_bases(n, rng)
+            header = f">{name}  AC:synthetic  LN:{n}  rl:Chromosome\n".encode()
+            full = n // FASTA_LINE
+            lines = np.empty((full, FASTA_LINE + 1), np.uint8)
+            lines[:, :FASTA_LINE] = seq[: full * FASTA_LINE].reshape(full, FASTA_LINE)
+            lines[:, FASTA_LINE] = ord("\n")
+            tail = seq[full * FASTA_LINE:].tobytes() + b"\n" if n % FASTA_LINE else b""
+            f.write(header)
+            f.write(lines.data)
+            f.write(tail)
+            out[name] = {"seq": seq, "fai": (n, pos + len(header), FASTA_LINE, FASTA_LINE + 1)}
+            pos += len(header) + lines.nbytes + len(tail)
+    return out
+
+
+def encode_split(raw: bytes, dev) -> tuple[dict, torch.Tensor]:
+    """``encode_onehot_and_codes``'s three steps, each ended by a
+    synchronize: h2d and d2h (host clock, s) and the device ops (CUDA
+    events, ms; the best of three).  Returns the times and the device
+    codes."""
+    src = torch.from_numpy(np.frombuffer(raw, np.uint8).copy())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = src.to(dev)
+    torch.cuda.synchronize()
+    h2d = time.perf_counter() - t0
+    runs = []
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        codes = ascii_to_codes(d)
+        onehot = codes_to_onehot(codes)
+        b.record()
+        b.synchronize()
+        runs.append(a.elapsed_time(b))
+    t0 = time.perf_counter()
+    onehot.cpu(), codes.cpu()
+    d2h = time.perf_counter() - t0
+    return {"h2d_s": h2d, "device_ms": min(runs), "device_ms_runs": runs, "d2h_s": d2h}, codes
+
+
+def reference_phase(card: str, tmp: str, seed: int, dev, cmp: Comparisons) -> tuple[dict, int]:
+    """Phase 15.  Returns its numbers and the window kernel's launches on it."""
+    t_phase = time.perf_counter()
+    path = os.path.join(tmp, "GRCh38_chr1_chr22.fa")
+    t0 = time.perf_counter()
+    truth = write_reference_fasta(path, seed + 7)
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    n1 = GRCH38_REF["chr1"]
+    seq1 = truth["chr1"]["seq"]
+    log(f"reference input: FASTA of chr1 and chr22 at GRCh38's lengths "
+        f"({sum(GRCH38_REF.values()):,} bp), {size / 1e6:.1f} MB, 60 bases a line; chr1 N "
+        f"{float(np.mean(seq1 == ord('N'))):.4f}, lowercase {float(np.mean(seq1 >= ord('a'))):.4f}"
+        f"; written in {write_s:.1f} s")
+    check(write_s < 45, f"the FASTA took {write_s:.1f} s to write, past 45 s")
+
+    # -- index and fetch
+    t0 = time.perf_counter()
+    recs = build_fai(path)
+    fai_s = time.perf_counter() - t0
+    for name, t in truth.items():
+        r = recs[name]
+        got = (r.length, r.offset, r.linebases, r.linewidth)
+        check(got == t["fai"], f"build_fai {name}: {got} != the writer's {t['fai']}")
+    n_lines = sum(-(-n // FASTA_LINE) + 1 for n in GRCH38_REF.values())
+    t0 = time.perf_counter()
+    with FastaReader(path) as fa:
+        check(isinstance(fa._impl, FaidxFasta), "FastaReader did not take the fresh .fai")
+        raw = fa.fetch("chr1")
+    fetch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with NativeFasta(path) as nf:
+        native_raw = nf.fetch("chr1", 0, n1)
+    native_s = time.perf_counter() - t0
+    check(raw == native_raw, "FaidxFasta and NativeFasta fetched different chr1 bytes")
+    check(raw == seq1.tobytes(), "the fetched chr1 differs from the bases written")
+    del native_raw, truth, seq1
+    log(f"[{card}] reference index and fetch: build_fai {fai_s:.2f} s for {n_lines:,} lines "
+        f"(records equal the writer's); chr1 fetch by FaidxFasta {fetch_s:.3f} s, by "
+        f"NativeFasta (whole-file read + fetch) {native_s:.3f} s (host clock), byte-equal")
+
+    # -- encode chr1 on the card against encode_host
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    onehot, codes = encode_onehot_and_codes(raw, device=dev)
+    e2e_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - mem0
+    t0 = time.perf_counter()
+    want_oh, want_codes = encode_host(np.frombuffer(raw, np.uint8))
+    host_s = time.perf_counter() - t0
+    check(onehot.shape == (n1, 5) and onehot.dtype == np.uint8, "one-hot shape/dtype")
+    check(codes.shape == (n1,) and codes.dtype == np.int8, "codes shape/dtype")
+    check(np.array_equal(codes, want_codes), "the card's codes differ from encode_host's")
+    check(np.array_equal(onehot, want_oh), "the card's one-hot differs from encode_host's")
+    del onehot, want_oh, want_codes
+    split, codes_dev = encode_split(raw, dev)
+    check(np.array_equal(codes_dev.cpu().numpy(), codes), "the split's codes")
+    bound_ms = ENCODE_BYTES_PER_BASE * n1 / HBM_BYTES_PER_S * 1e3
+    log(f"[{card}] reference encode, chr1 {n1:,} bases: encode_onehot_and_codes "
+        f"{e2e_s:.3f} s end to end, encode_host (numpy) {host_s:.3f} s (host clock), "
+        f"bit-equal; split: h2d {split['h2d_s']:.4f} s, device ops {split['device_ms']:.4f} ms "
+        f"(CUDA events, best of {', '.join(f'{m:.4f}' for m in split['device_ms_runs'])}) "
+        f"against a bound of {bound_ms:.4f} ms (7 bytes a base at 3.35 TB/s), d2h "
+        f"{split['d2h_s']:.4f} s; peak device memory {peak / 2**30:.3f} GiB")
+
+    # -- genome to sampler
+    t0 = time.perf_counter()
+    genome = GenomeTensors.from_fasta(path)
+    from_fasta_s = time.perf_counter() - t0
+    check(genome.chrom_names == list(GRCH38_REF), "from_fasta records")
+    check(np.array_equal(genome.codes_flat[:n1], codes), "from_fasta's chr1 codes != the card's")
+    flat = torch.from_numpy(genome.codes_flat).to(dev)
+    lengths = genome.lengths.astype(np.int64)
+    cohort = make_cohort(flat, genome.offsets.astype(np.int64), lengths, genome.chrom_names,
+                         REF_DONORS, torch.Generator(device=dev).manual_seed(seed + 8))
+    regions = make_regions(lengths, N_REGIONS, seed + 8)
+    genome = GenomeTensors(genome.chrom_names, flat, genome.offsets, genome.lengths)
+    sampler = DeviceHaplotypeSampler(genome, cohort, regions,
+                                     SamplerConfig(seq_length=SEQ_LENGTH, batch_size=BATCH),
+                                     device=dev)
+    encode_windows_kernel.launches = 0
+    batches = [sampler.sample() for _ in range(REF_BATCHES)]
+    torch.cuda.synchronize()
+    launches = encode_windows_kernel.launches
+    check(launches == REF_BATCHES, f"window kernel launches {launches} != {REF_BATCHES}")
+    n_var = 0
+    for step, b in enumerate(batches):
+        want = sampler.windows_from_draws(*sampler.draw_indices(step), kernel="baseline")
+        cmp.windows(b, want, f"reference sampler step {step}")
+        n_var += int(b.n_variants.sum())
+    check(n_var > 0, "the reference sampler's windows hold no variants")
+    log(f"reference sampler: GenomeTensors.from_fasta {from_fasta_s:.2f} s (chr1 codes equal "
+        f"the card's); {REF_DONORS} donors, {int(cohort.counts.sum()):,} SNVs, {N_REGIONS:,} "
+        f"regions; {REF_BATCHES} sample() batches at B={BATCH}, L={SEQ_LENGTH}: {launches} "
+        f"window-kernel launches, each batch bit-equal to the plain version ({n_var:,} "
+        f"in-window SNVs)")
+    del sampler, batches, cohort, flat, genome
+
+    # -- codecs
+    pack_runs = []
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        packed, mask = pack_2bit_device(codes_dev)
+        b.record()
+        b.synchronize()
+        pack_runs.append(a.elapsed_time(b))
+    np_packed, np_mask, _ = pack_2bit(codes)
+    check(np.array_equal(packed.cpu().numpy(), np_packed)
+          and np.array_equal(mask.cpu().numpy(), np_mask), "pack_2bit_device != pack_2bit")
+    check(torch.equal(unpack_2bit_device(packed, mask)[:n1], codes_dev), "2-bit round trip")
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    n_windows = 0
+    for L in (1000, 1002):
+        s = torch.randint(0, n1 - L + 1, (PACK_STARTS,), generator=gen, device=dev)
+        s = torch.cat([s, torch.tensor([0, 3, n1 - L], device=dev)])
+        got = gather_window_2bit(packed, mask, s, L=L)
+        check(torch.equal(got, codes_dev.unfold(0, L, 1)[s]), f"gather_window_2bit L={L}")
+        n_windows += s.numel()
+    log(f"[{card}] reference codecs: pack_2bit_device on chr1 "
+        f"{', '.join(f'{m:.4f}' for m in pack_runs)} ms (CUDA events, three calls), "
+        f"{packed.numel() + mask.numel():,} bytes, equal to numpy pack_2bit, round "
+        f"trip bit-equal; gather_window_2bit at {n_windows} windows (L 1000 and 1002, starts 0, "
+        f"3 and G - L among them) equal to the codes' slices")
+    del packed, mask, codes_dev
+
+    # -- doctor and dataset
+    checks = run_checks()
+    for name, ok, detail in checks:
+        log(f"  doctor {'✓' if ok else '✗'} {name:16s} {detail}")
+    # the HDF5 checks pass only where h5py and libblosc.so.1 are installed
+    hdf5 = ("h5py/HDF5", "blosc filter")
+    bad = [name for name, ok, _ in checks if not ok and name not in hdf5]
+    check(not bad, f"doctor checks failed: {bad}")
+    if importlib.util.find_spec("h5py") is None:
+        log("RandomHaplotypeDataset: not run: it reads HDF5 files and h5py is not installed "
+            "on this machine (tests/test_torch_dataset.py holds it against the JAX package)")
+    phase_s = time.perf_counter() - t_phase
+    log(f"reference phase: {phase_s:.1f} s")
+    return {"card": card, "fasta_mb": size / 1e6, "write_s": write_s, "build_fai_s": fai_s,
+            "fai_lines": n_lines, "bases": n1, "fetch_s": fetch_s, "native_fetch_s": native_s,
+            "encode_s": e2e_s, "encode_host_s": host_s, **split, "bound_ms": bound_ms,
+            "peak_mem_gib": peak / 2**30, "from_fasta_s": from_fasta_s,
+            "window_launches": launches, "pack_ms_runs": pack_runs, "phase_s": phase_s}, launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1750,7 +2009,7 @@ def main() -> int:
     # -- 7-10. the converter -------------------------------------------------
     dec = DecodeComparisons()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    conv_dir = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)  # phases 7-10 and 14
+    conv_dir = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)  # phases 7-10, 14, 15
     try:
         tmp = conv_dir.name
         ctx = converter_main_path(tmp, args.seed, dev, dec)
@@ -1779,6 +2038,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         single_pass = single_pass_phase(card, tmp, args.seed, dev, ctx)
         log(json.dumps({"single_pass": single_pass}))
+
+        # -- 15. the reference path ------------------------------------------
+        torch.cuda.empty_cache()
+        reference, ref_launches = reference_phase(card, tmp, args.seed, dev, cmp)
+        log(json.dumps({"reference": reference}))
     finally:
         conv_dir.cleanup()
 
@@ -1787,7 +2051,7 @@ def main() -> int:
         "route": "cuda",
         "source": "haplohyped_tpu_torch/csrc/window_kernel.cu",
         "replaces": "haplohyped_tpu/ops/pallas_window.py:178",
-        "launches": main_launches,
+        "launches": main_launches + ref_launches,
         "max_abs_err": cmp.max_abs_err,
         "ms": ms_kernel,
         "plain_ms": ms_plain,

@@ -9,7 +9,10 @@ checkpoints and ``train_on_sampler`` in ``models/``) and the VCF/BCF ->
 cohort-HDF5 converter (``pipeline.vcf_to_h5.VCFtoHDF5Converter``: the
 single pass, every donor of a chromosome from one framing decoded by torch
 ops, and the per-donor path, its record decode on two more Hopper
-kernels).  It imports torch and numpy (h5py and libblosc only where
+kernels), the FASTA -> reference-HDF5 encoder (``pipeline.fasta_encoder``:
+the one-hot as torch ops) with its FASTA readers and faidx index, the genome
+codecs (``ops.pack``), the host ``data.RandomHaplotypeDataset``, and an
+argparse CLI with a doctor (``pipeline.main``).  It imports torch and numpy (h5py and libblosc only where
 an HDF5 file is read or written), and nothing of JAX or ``haplohyped_tpu``.
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.

@@ -1,4 +1,4 @@
-"""Sampler and converter configuration, and device resolution."""
+"""Sampler, converter and FASTA-encoder configuration, and device resolution."""
 
 from __future__ import annotations
 
@@ -99,6 +99,29 @@ class ConvertConfig:
         return os.path.join(self.vcf_dir, self.vcf_pattern.format(chromosome=chromosome))
 
     def replace(self, **kw) -> "ConvertConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class FastaEncodeConfig:
+    """Configuration of the FASTA -> one-hot reference-genome HDF5 encoding."""
+
+    fasta_path: str
+    out_dir: str
+    cores: int = field(default_factory=lambda: os.cpu_count() or 1)
+    chromosomes: tuple[str, ...] = tuple(f"chr{i}" for i in AUTOSOMES)
+    #: additionally store int8 base-code datasets for fast device loading
+    write_codes: bool = True
+
+    @property
+    def tmp_dir(self) -> str:
+        return os.path.join(self.out_dir, "tmp_chrom_files")
+
+    @property
+    def final_h5_path(self) -> str:
+        return os.path.join(self.out_dir, "reference_genome.h5")
+
+    def replace(self, **kw) -> "FastaEncodeConfig":
         return dataclasses.replace(self, **kw)
 
 

@@ -12,6 +12,7 @@ import numpy as np
 
 #: Base -> integer code (column order of the one-hot channels).
 DEFAULT_ENCODE_LIST: tuple[str, ...] = ("A", "C", "G", "T", "N")
+DEFAULT_ENCODE_DICT: dict[str, int] = {b: i for i, b in enumerate(DEFAULT_ENCODE_LIST)}
 
 #: Number of one-hot channels under the default spec.
 NUM_CHANNELS: int = len(DEFAULT_ENCODE_LIST)
@@ -45,6 +46,9 @@ BLOSC_FILTER_ID: int = 32001
 #: chunksize, clevel, shuffle, compcode) -- clevel 5, byte shuffle, LZ4HC.
 #: The filter's ``set_local`` overwrites the first four at dataset creation.
 COHORT_COMPRESSION_OPTS: tuple[int, ...] = (2, 2, 0, 0, 5, 1, 2)
+
+#: cd_values of the per-chromosome reference writer (filter version 0).
+REFERENCE_COMPRESSION_OPTS: tuple[int, ...] = (0, 2, 0, 0, 5, 1, 2)
 
 #: Autosomes a conversion processes by default.
 AUTOSOMES: tuple[int, ...] = tuple(range(1, 23))

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from haplohyped_tpu_torch.core.config import resolve_device
-from haplohyped_tpu_torch.core.constants import N_CODE
+from haplohyped_tpu_torch.core.constants import BASE_LUT, N_CODE
 
 
 @dataclass
@@ -56,6 +56,21 @@ class GenomeTensors:
             if chrom_names is None:
                 chrom_names = ref.chromosomes()
             chroms = {name: ref.get_codes(name) for name in chrom_names}
+        return cls.from_code_arrays(chroms)
+
+    @classmethod
+    def from_fasta(cls, fasta_path: str, chrom_names: list[str] | None = None) -> "GenomeTensors":
+        """Load from a FASTA (every record by default), bases through
+        ``BASE_LUT`` on the host."""
+        from haplohyped_tpu_torch.hostio.fasta import FastaReader
+
+        with FastaReader(fasta_path) as fa:
+            if chrom_names is None:
+                chrom_names = fa.names()
+            chroms = {
+                name: BASE_LUT[np.frombuffer(fa.fetch(name), dtype=np.uint8)]
+                for name in chrom_names
+            }
         return cls.from_code_arrays(chroms)
 
     def device_arrays(self, device: str | torch.device = "cuda"):

@@ -1,11 +1,12 @@
 """ctypes bindings of the native VCF/BCF reader (``cpp/hostio.cpp``,
 ``cpp/bcf.cpp``).
 
-The port binds the functions its converter calls: the VCF framers
-(``hh_vcf_samples``, ``hh_vcf_frame``, ``hh_vcf_frame12``,
+The port binds the functions its converter and FASTA readers call: the VCF
+framers (``hh_vcf_samples``, ``hh_vcf_frame``, ``hh_vcf_frame12``,
 ``hh_vcf_frame_v2``), the BGZF block reader behind the tabix index builder
-(``hh_bgzf_*``), and the BCF parser (``hh_bcf_samples``, ``hh_bcf_parse``,
-``hh_bcf_parse_v2``), of a library that
+(``hh_bgzf_*``), the BCF parser (``hh_bcf_samples``, ``hh_bcf_parse``,
+``hh_bcf_parse_v2``) and the whole-file FASTA reader (``hh_fasta_*``), of a
+library that
 :func:`haplohyped_tpu_torch.ops._build.load_hostio` compiles from the
 repository's ``cpp/`` into the port's own build directory at first use.  A
 failed build raises; there is no silent drop to the Python framer.  Every
@@ -73,6 +74,18 @@ def _load() -> ctypes.CDLL:
     lib.hh_bcf_parse.argtypes = [s, s, i] + [out] * 10 + [pi64, out, s, i]
     lib.hh_bcf_parse_v2.argtypes = [s, p(ctypes.c_int32), ctypes.c_int32, i] + [out] * 11 + [
         pi64, out, s, i]
+    lib.hh_fasta_open.argtypes = [s, s, i]
+    lib.hh_fasta_open.restype = vp
+    lib.hh_fasta_close.argtypes = [vp]
+    lib.hh_fasta_close.restype = None
+    lib.hh_fasta_nseq.argtypes = [vp]
+    lib.hh_fasta_nseq.restype = i
+    lib.hh_fasta_name.argtypes = [vp, i, s, i]
+    lib.hh_fasta_name.restype = i
+    lib.hh_fasta_length.argtypes = [vp, s]
+    lib.hh_fasta_length.restype = i64
+    lib.hh_fasta_fetch.argtypes = [vp, s, i64, i64, vp]
+    lib.hh_fasta_fetch.restype = i64
     for fn in (lib.hh_vcf_samples, lib.hh_vcf_frame, lib.hh_vcf_frame12, lib.hh_vcf_frame_v2,
                lib.hh_bgzf_decode_range, lib.hh_bcf_samples, lib.hh_bcf_parse,
                lib.hh_bcf_parse_v2):
@@ -352,6 +365,56 @@ class BgzfRangeReader:
             self._h = None
 
     def __enter__(self) -> "BgzfRangeReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self):
+        self.close()
+
+
+class NativeFasta:
+    """A plain or gzipped FASTA read whole by the native library; fetches
+    copy ``[start, end)`` of a record, clamped to it, newlines dropped."""
+
+    _NAME_CAP = 1024
+
+    def __init__(self, path: str):
+        self._lib, self._h = _load(), None
+        err = ctypes.create_string_buffer(_ERR_CAP)
+        self._h = self._lib.hh_fasta_open(path.encode(), err, _ERR_CAP)
+        if not self._h:
+            raise RuntimeError(err.value.decode() or "hh_fasta_open failed")
+
+    def names(self) -> list[str]:
+        buf = ctypes.create_string_buffer(self._NAME_CAP)
+        out = []
+        for k in range(self._lib.hh_fasta_nseq(self._h)):
+            if self._lib.hh_fasta_name(self._h, k, buf, self._NAME_CAP) != 0:
+                raise RuntimeError(f"hh_fasta_name failed for record {k}")
+            out.append(buf.value.decode())
+        return out
+
+    def length(self, name: str) -> int:
+        n = self._lib.hh_fasta_length(self._h, name.encode())
+        if n < 0:
+            raise KeyError(name)
+        return int(n)
+
+    def fetch(self, name: str, start: int, end: int) -> bytes:
+        out = ctypes.create_string_buffer(max(0, end - start))
+        written = self._lib.hh_fasta_fetch(self._h, name.encode(), start, end, out)
+        if written < 0:
+            raise KeyError(name)
+        return out.raw[: int(written)]
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.hh_fasta_close(self._h)
+            self._h = None
+
+    def __enter__(self) -> "NativeFasta":
         return self
 
     def __exit__(self, *exc) -> None:

@@ -83,6 +83,7 @@ from haplohyped_tpu_torch.pipeline.records import (
 )
 from haplohyped_tpu_torch.storage.blosc import cohort_compression_kwargs, set_blosc_nthreads
 from haplohyped_tpu_torch.storage.fastwrite import write_dataset_direct
+from haplohyped_tpu_torch.utils.malloc_tune import prefault_arena, tune_malloc
 
 logger = logging.getLogger("haplohyped_tpu_torch.vcf_to_h5")
 
@@ -220,6 +221,17 @@ class VCFtoHDF5Converter:
         self.tmp_dir = cfg.tmp_dir
         os.makedirs(self.tmp_dir, exist_ok=True)
         set_blosc_nthreads(cfg.cxx_threads)
+        # keep freed frame/decode/struct buffers in the malloc arena, and pay
+        # their first-touch page faults now, in the background, while framing
+        # runs: peak arena need is ~10x the compressed input
+        tune_malloc()
+        try:
+            total_gz = sum(os.path.getsize(cfg.vcf_path(c)) for c in cfg.chromosomes
+                           if os.path.exists(cfg.vcf_path(c)))
+        except OSError:
+            total_gz = 0
+        if total_gz:
+            prefault_arena(min(max(10 * total_gz, 64 << 20), 3 << 29))
         self.results: list[TaskResult] = []
 
     # -- inputs ---------------------------------------------------------

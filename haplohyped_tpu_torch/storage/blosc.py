@@ -10,9 +10,10 @@ on a machine where the plugin cannot be built or registered, raises an error
 that says so.  h5py is imported only where a file is read or written, so
 the package imports on a machine without it.
 
-Cohort tables are written with Blosc where h5py and the system libblosc are
-present, and with gzip where they are not, as the JAX package chooses
-(:func:`cohort_compression_kwargs`).
+Cohort tables and reference sequences are written with Blosc where h5py and
+the system libblosc are present, and with gzip where they are not, as the JAX
+package chooses (:func:`cohort_compression_kwargs`,
+:func:`reference_compression_kwargs`).
 """
 
 from __future__ import annotations
@@ -24,7 +25,11 @@ import importlib.util
 import os
 import threading
 
-from haplohyped_tpu_torch.core.constants import BLOSC_FILTER_ID, COHORT_COMPRESSION_OPTS
+from haplohyped_tpu_torch.core.constants import (
+    BLOSC_FILTER_ID,
+    COHORT_COMPRESSION_OPTS,
+    REFERENCE_COMPRESSION_OPTS,
+)
 from haplohyped_tpu_torch.ops._build import PACKAGE_DIR, build_shared_library
 
 #: the plugin's C source, in the repository's ``cpp/`` directory
@@ -157,6 +162,19 @@ def cohort_compression_kwargs(n_records: int | None = None) -> dict:
         return {
             "compression": BLOSC_FILTER_ID,
             "compression_opts": COHORT_COMPRESSION_OPTS,
+            "chunks": chunks,
+        }
+    return {"compression": "gzip", "compression_opts": 4, "chunks": chunks}
+
+
+def reference_compression_kwargs(chunks: bool | tuple = True) -> dict:
+    """``h5py.create_dataset`` kwargs for reference one-hot sequences and
+    codes: Blosc 32001 with the reference cd_values where
+    :func:`blosc_available`, gzip level 4 otherwise."""
+    if blosc_available():
+        return {
+            "compression": BLOSC_FILTER_ID,
+            "compression_opts": REFERENCE_COMPRESSION_OPTS,
             "chunks": chunks,
         }
     return {"compression": "gzip", "compression_opts": 4, "chunks": chunks}

@@ -13,14 +13,17 @@ from haplohyped_tpu_torch.core.constants import (
     SEQUENCE_DATASET_NAME,
 )
 from haplohyped_tpu_torch.storage.blosc import read_dataset
+from haplohyped_tpu_torch.utils.common_utils import parse_encode_dict
 
 
 class ReferenceGenomeReader:
-    def __init__(self, h5_file: str):
+    def __init__(self, h5_file: str, encode_spec=None):
         import h5py
 
         self.h5_path = h5_file
         self.h5_file = h5py.File(h5_file, "r")
+        #: the channel order of the one-hot the file was written with
+        self.encode_spec = parse_encode_dict(encode_spec)
 
     def chromosomes(self) -> list[str]:
         return list(self.h5_file.keys())

@@ -3,7 +3,9 @@
 The GRCh38 autosomes chr1-chr12 at their true lengths (random codes), 128
 donors with SNVs at ~1.2 per kb per chromosome, and 100,000 BED regions of
 200-2,000 bp.  ``chip_smoke.py`` samples from it, and the window-kernel lab
-measures on its chr1 (``--state deployment``).
+measures on its chr1 (``--state deployment``).  ``make_cohort`` and
+``make_regions`` make the same cohort and regions over another genome
+(``chip_smoke.py`` phase 15: the genome read from a FASTA).
 """
 
 from __future__ import annotations
@@ -44,18 +46,29 @@ def make_state(seed: int, device: torch.device):
         codes[off + n : off + p] = N_CODE
     genome = GenomeTensors(names, codes, offsets.astype(np.int32), lengths.astype(np.int32))
 
+    cohort = make_cohort(codes, offsets, lengths, names, N_DONORS, g)
+    return genome, cohort, make_regions(lengths, N_REGIONS, seed)
+
+
+def make_cohort(codes: torch.Tensor, offsets: np.ndarray, lengths: np.ndarray,
+                names: list[str], n_donors: int, g: torch.Generator) -> CohortTensors:
+    """``n_donors`` donors with SNVs at ``SNV_PER_BP`` on every chromosome of
+    a genome (flat ``codes`` on the device, chromosome ``offsets`` and
+    ``lengths``), drawn from ``g``: REF is the genome's base, ALT another
+    code, phases uniform."""
+    device = codes.device
     # positions: a cumulative sum of gaps uniform on [1, 2/rate - 1] (mean
     # 1/rate), so rows come sorted; V leaves room for +0.5% on the longest
     C = len(names)
     V = -(-int(lengths.max() * SNV_PER_BP * 1.005) // 128) * 128
     gap_hi = round(2 / SNV_PER_BP) - 1
-    pos = torch.empty((N_DONORS, C, V), dtype=torch.int32, device=device)
-    ref, alt, p1, p2 = (torch.empty((N_DONORS, C, V), dtype=torch.int8, device=device)
+    pos = torch.empty((n_donors, C, V), dtype=torch.int32, device=device)
+    ref, alt, p1, p2 = (torch.empty((n_donors, C, V), dtype=torch.int8, device=device)
                         for _ in range(4))
-    counts = torch.empty((N_DONORS, C), dtype=torch.int32, device=device)
+    counts = torch.empty((n_donors, C), dtype=torch.int32, device=device)
     len_t = torch.as_tensor(lengths, device=device)[:, None]
     off_t = torch.as_tensor(offsets, device=device)[:, None]
-    for d in range(N_DONORS):
+    for d in range(n_donors):
         gaps = torch.randint(1, gap_hi + 1, (C, V), dtype=torch.int32, device=device, generator=g)
         p = torch.cumsum(gaps, dim=1, dtype=torch.int32) - 1
         valid = p < len_t
@@ -68,12 +81,14 @@ def make_state(seed: int, device: torch.device):
         p1[d] = torch.where(valid, ph[0], 0)
         p2[d] = torch.where(valid, ph[1], 0)
         counts[d] = valid.sum(dim=1, dtype=torch.int32)
-    donors = [f"donor{d:03d}" for d in range(N_DONORS)]
-    cohort = CohortTensors(donors, list(names), pos, ref, alt, p1, p2, counts)
+    donors = [f"donor{d:03d}" for d in range(n_donors)]
+    return CohortTensors(donors, list(names), pos, ref, alt, p1, p2, counts)
 
-    # regions lie on chromosomes drawn by length, uniform within each
+
+def make_regions(lengths: np.ndarray, n_regions: int, seed: int) -> np.ndarray:
+    """``(n_regions, 2)`` int64 BED spans of 200-2,000 bp on chromosomes drawn
+    by length, uniform within each (every chromosome longer than 2,000 bp)."""
     rng = np.random.default_rng(seed)
-    rc = rng.choice(C, size=N_REGIONS, p=lengths / lengths.sum())
-    s = (rng.random(N_REGIONS) * (lengths[rc] - 2000)).astype(np.int64)
-    regions = np.stack([s, s + rng.integers(200, 2001, N_REGIONS)], axis=1)
-    return genome, cohort, regions
+    rc = rng.choice(len(lengths), size=n_regions, p=lengths / lengths.sum())
+    s = (rng.random(n_regions) * (lengths[rc] - 2000)).astype(np.int64)
+    return np.stack([s, s + rng.integers(200, 2001, n_regions)], axis=1)

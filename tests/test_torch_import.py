@@ -1,4 +1,5 @@
-"""The PyTorch port stands alone: no JAX, nothing of ``haplohyped_tpu``.
+"""The PyTorch port stands alone: no JAX, nothing of ``haplohyped_tpu``,
+and no click (the card's machine has none; the port's CLIs are argparse).
 
 Imports are checked in a subprocess, because this test session imports JAX
 in-process (``tests/conftest.py``).  The sources of the port and of
@@ -18,7 +19,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "haplohyped_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "haplohyped_tpu")
+#: JAX and the JAX package; click, because the card's machine has none and
+#: the port's CLIs are argparse
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "haplohyped_tpu", "click")
 
 
 def _forbidden(module: str) -> bool:
@@ -43,7 +46,10 @@ def test_importing_every_module_leaves_jax_out():
                  "hostio.native", "hostio.vcf", "hostio.tabix", "hostio.bcf",
                  "pipeline.vcf_to_h5", "storage.fastwrite",
                  "ops.window_lab", "tools.window_kernel_lab", "models.haploformer",
-                 "models.train"):
+                 "models.train", "core.profiling", "utils.bitpack", "utils.common_utils",
+                 "utils.malloc_tune", "hostio.fai", "hostio.fasta", "ops.onehot", "ops.pack",
+                 "data.haplotype_dataset", "pipeline.fasta_encoder", "pipeline.doctor",
+                 "pipeline.main"):
         assert f"haplohyped_tpu_torch.{name}" in res["imported"]
     bad = [m for m in res["modules"] if _forbidden(m)]
     assert bad == []
