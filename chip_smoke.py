@@ -123,10 +123,32 @@ Phases (any failure exits non-zero; nothing is caught):
    check passing but the two that need h5py and libblosc (neither is on the
    card's machine).
 
+16. The tokenizer route and the host I/O surface, on phase 7's chr1 file, phase
+   14's chr22 file (W 128 and 1024) and the 300-contig file; no Hopper kernel
+   lies on it.  ``tokenize_vcf_device`` on the card for chr1's 8 donors, each
+   struct byte-equal to phase 8's frame12 struct, and for 4 chr22 donors
+   against phase 14's; 200,000 lines of each file tokenized on the CPU,
+   every column bit-equal to the card's; ``tokenize_vcf_streaming`` in at
+   least 8 chunks on both files, and on chr22's 20-30 Mb through a ``.tbi``
+   that ``build_index`` writes, every column bit-equal to the whole file's
+   rows; ``parse_snps(use_tokenizer=True)`` on the 300-contig file for two
+   donors byte-equal to the 64-byte route, with no kernel launched (the
+   counts set to 0 just before, read just after); chr22's first 100,000
+   records for 4 donors through ``VcfWriter`` (``z``) and ``BcfWriter``
+   (``b``), read back through ``parse_snps`` and ``bcf_decoded_columns``
+   byte-equal to the source; ``VariantTable.from_vcf`` on chr22, its SNP
+   mask and start equal to the tokenizer's.  Times: the tokenizer's task on
+   chr1 for one donor beside frame12's (in turns), records/s, its split into
+   ``vcf_text``, h2d, device ops (CUDA events, beside a byte bound of
+   N x (2W + 39) bytes), d2h and struct assembly on both files, the
+   streaming reads' wall time beside their host and device time, the peak
+   device memory at each W, and ``VariantTable.from_vcf`` seconds.
+
 The lines before the last are a JSON object ``{"train": {...}}`` of phase
 13's numbers, one ``{"single_pass": {...}}`` of phase 14's, one
-``{"reference": {...}}`` of phase 15's, then one with one entry per kernel;
-the last line is ``{"ok": true, "device": {...}}``.
+``{"reference": {...}}`` of phase 15's, one ``{"tokenizer": {...}}`` of
+phase 16's, then one with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -162,11 +184,16 @@ from haplohyped_tpu_torch.core.timing import (
     card_line,
     device_ms,
 )
+from haplohyped_tpu_torch.hostio import native
+from haplohyped_tpu_torch.hostio.bcf import bcf_decoded_columns, is_bcf
 from haplohyped_tpu_torch.hostio.fai import FaidxFasta, build_fai
 from haplohyped_tpu_torch.hostio.fasta import FastaReader
 from haplohyped_tpu_torch.hostio.frame_format import REC12_SIZE, REC_SIZE
 from haplohyped_tpu_torch.hostio.native import NativeFasta
+from haplohyped_tpu_torch.hostio.tabix import build_index
+from haplohyped_tpu_torch.hostio.variants import VariantTable
 from haplohyped_tpu_torch.hostio.vcf import VCFSource
+from haplohyped_tpu_torch.hostio.writer import BcfWriter, VcfHeader, VcfWriter
 from haplohyped_tpu_torch.models.haploformer import (
     HaploFormer,
     HaploFormerConfig,
@@ -206,6 +233,21 @@ from haplohyped_tpu_torch.ops.vcf_decode import (
     decoded_to_numpy,
     unpack12_columns,
 )
+from haplohyped_tpu_torch.ops.vcf_stream import tokenize_vcf_streaming
+from haplohyped_tpu_torch.ops.vcf_tokenize import (
+    choose_window,
+    decoded_to_host,
+    default_chunk_lines,
+    line_fields,
+    line_windows,
+    sample_column,
+    tab_columns,
+    tab_counts,
+    tabs_needed,
+    tokenize_lines,
+    tokenize_vcf_device,
+    upload_text,
+)
 from haplohyped_tpu_torch.ops.window_kernel import (
     BK,
     build_window_index,
@@ -223,7 +265,11 @@ from haplohyped_tpu_torch.ops.window_lab import (
 )
 from haplohyped_tpu_torch.pipeline.doctor import run_checks
 from haplohyped_tpu_torch.pipeline.fasta_encoder import encode_host, encode_onehot_and_codes
-from haplohyped_tpu_torch.pipeline.records import snp_struct_from_frames12, snp_structs_from_v2
+from haplohyped_tpu_torch.pipeline.records import (
+    snp_struct_from_decoded,
+    snp_struct_from_frames12,
+    snp_structs_from_v2,
+)
 from haplohyped_tpu_torch.pipeline.vcf_to_h5 import (
     V2_GENOTYPE_COLUMNS,
     V2_RECORD_COLUMNS,
@@ -1542,7 +1588,8 @@ def _timed_file(card: str, what: str, path: str, chrom: str, samples: list, dev,
 
 
 def single_pass_phase(card: str, tmp: str, seed: int, dev, ctx: dict) -> dict:
-    """Phase 14 (``ctx``: phase 8's files, donors and per-donor structs)."""
+    """Phase 14 (``ctx``: phase 8's files, donors and per-donor structs; the
+    cohort file's path and some of its donors' structs are added to it)."""
     threads, samples, chr1 = ctx["threads"], ctx["samples"], ctx["chr1"]
     t_phase = time.perf_counter()
     kw = dict(cores=1, cxx_threads=threads, device=dev)
@@ -1622,6 +1669,9 @@ def single_pass_phase(card: str, tmp: str, seed: int, dev, ctx: dict) -> dict:
     out["cohort"] = _timed_file(card, f"chr22 x {N_COHORT_DONORS}", path22, "chr22", donors, dev,
                                 threads, sp22, sp22_s, peak22, pd_s)
     out["cohort"]["write_s"] = write_s
+    # phase 16 reads the cohort file again, with these donors' structs
+    ctx["chr22"] = path22
+    ctx["structs22"] = {d: sp22[d] for d in donors[::N_COHORT_DONORS // N_WRITER_DONORS]}
     log(f"single pass phase: {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -1856,6 +1906,352 @@ def reference_phase(card: str, tmp: str, seed: int, dev, cmp: Comparisons) -> tu
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the tokenizer route and the host I/O surface
+# ---------------------------------------------------------------------------
+
+#: lines of each file tokenized on the CPU against the card
+CPU_LINES = 200_000
+#: the cohort file's region read through its .tbi (0-based, half-open)
+REGION22 = ("chr22", 20_000_000, 30_000_000)
+#: chunks a streaming read is cut into, at least
+MIN_CHUNKS = 8
+#: the cohort file's first records, and its donors, written back through the writers
+WRITER_RECORDS, N_WRITER_DONORS = 100_000, 4
+#: bytes a line of the tokenizer's output columns (15 columns), and of its line index
+TOKEN_OUT_BYTES, TOKEN_IN_BYTES = 31, 8
+TOKEN_STAGES = ("vcf_text", "h2d", "device_ops", "d2h", "struct_assembly")
+
+
+def check_columns(got: dict, want: dict, what: str) -> None:
+    """Every tokenizer column of ``got`` bit-equal to ``want``'s."""
+    check(sorted(got) == sorted(want), f"{what}: columns")
+    for k, w in want.items():
+        g = got[k]
+        check(g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w),
+              f"{what}: {k} differs")
+
+
+def token_bound_ms(n: int, W: int) -> float:
+    """The tokenizer's byte bound: each line's 2W window bytes and its line
+    index read once, its 31 bytes of columns written once, at 3.35 TB/s."""
+    return n * (2 * W + TOKEN_IN_BYTES + TOKEN_OUT_BYTES) / HBM_BYTES_PER_S * 1e3
+
+
+def token_on_cpu(vt, card: dict, donor: str, what: str) -> int:
+    """``CPU_LINES`` lines from the middle of ``vt`` tokenized on the CPU from
+    a slice of the text that starts on a row of W and runs to the last
+    line's second row, so every window holds the bytes the card's did; each
+    column bit-equal to the card's whole-file rows."""
+    n, W = vt.n_lines, choose_window(int(vt.line_lengths.max()))
+    i0 = n // 3
+    i1 = min(n, i0 + CPU_LINES)
+    offs = vt.line_offsets[i0:i1]
+    base = int(offs[0]) // W * W
+    stop = min(vt.text.shape[0], (int(offs[-1]) // W + 2) * W)
+    sub = np.zeros((-(-(stop - base) // W) + 1) * W, np.uint8)
+    sub[: stop - base] = vt.text[base:stop]
+    cols = tokenize_lines(torch.from_numpy(sub), torch.from_numpy((offs - base).astype(np.int32)),
+                          torch.from_numpy(vt.line_lengths[i0:i1].copy()), W=W,
+                          sample_col=sample_column(vt.samples, donor), with_sample=True)
+    check_columns({k: v.numpy() for k, v in cols.items()},
+                  {k: v[i0:i1] for k, v in card.items()}, f"{what}: the card against the CPU")
+    return i1 - i0
+
+
+#: the stages of ``tokenize_lines``, each a few torch ops
+TOKEN_DEVICE_STAGES = ("line_windows", "tab_counts", "tab_columns", "line_fields")
+
+
+def token_stage_ms(text, offs, lens, W: int, col: int, step: int) -> dict:
+    """The device ms of each stage of ``tokenize_lines`` over every chunk of
+    ``step`` lines (CUDA events between the stages; a stage's time includes
+    any gap while the host issues its ops)."""
+    ms = dict.fromkeys(TOKEN_DEVICE_STAGES, 0.0)
+    tabs = tabs_needed(col)
+    for lo in range(0, offs.shape[0], step):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        win, shift, end = line_windows(text, offs[lo:lo + step], lens[lo:lo + step], W)
+        ev[1].record()
+        counts = tab_counts(win, shift, end)
+        ev[2].record()
+        tab = tab_columns(counts, tabs)
+        ev[3].record()
+        line_fields(win, shift, end, tab, col)
+        ev[4].record()
+        ev[4].synchronize()
+        for k, a, b in zip(TOKEN_DEVICE_STAGES, ev, ev[1:]):
+            ms[k] += a.elapsed_time(b)
+    return ms
+
+
+def token_split(path: str, chrom: str, donor: str, dev, threads: int) -> tuple[dict, dict]:
+    """``tokenize_vcf_device``'s task stage by stage, each ended by a
+    synchronize (host clock, s), then the device ops alone three more times
+    (CUDA events, ms).  Returns the times and the struct."""
+    t = [time.perf_counter()]
+    with native.vcf_text(path, threads) as vt:
+        t.append(time.perf_counter())
+        n, W = vt.n_lines, choose_window(int(vt.line_lengths.max()))
+        text = upload_text(vt.text, W, dev)
+        offs = torch.from_numpy(vt.line_offsets.astype(np.int32)).to(dev)
+        lens = torch.from_numpy(vt.line_lengths.copy()).to(dev)
+        col = sample_column(vt.samples, donor)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    step = default_chunk_lines(W)
+
+    def run():
+        return [tokenize_lines(text, offs[lo:lo + step], lens[lo:lo + step], W=W,
+                               sample_col=col, with_sample=True) for lo in range(0, n, step)]
+
+    chunks = run()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    dec = decoded_to_host(chunks)
+    t.append(time.perf_counter())
+    struct = snp_struct_from_decoded(dec, dec["chrom"], chrom_filter=chrom)
+    t.append(time.perf_counter())
+    runs = []
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        runs.append(a.elapsed_time(b))
+    bound = token_bound_ms(n, W)
+    return {"records": n, "W": W, "split_s": dict(zip(TOKEN_STAGES, np.diff(t).tolist())),
+            "device_ms": min(runs), "device_ms_runs": runs, "bound_ms": bound,
+            "stage_ms": token_stage_ms(text, offs, lens, W, col, step)}, struct
+
+
+def tokenizer_task(path: str, chrom: str, donor: str, dev, threads: int) -> np.ndarray:
+    """The tokenizer's per-donor task: read, tokenize on the card, assemble."""
+    with native.vcf_text(path, threads) as vt:
+        dec = tokenize_vcf_device(vt, donor, device=dev)
+    return snp_struct_from_decoded(dec, dec["chrom"], chrom_filter=chrom)
+
+
+def whole_file_on_card(path: str, donors: list, want: dict, chrom: str, dev, threads: int,
+                       what: str) -> tuple[dict, dict]:
+    """``tokenize_vcf_device`` on the card for ``donors``: each struct
+    byte-equal to ``want[donor]``, the last donor's columns held against the
+    CPU.  Returns the last donor's columns and the numbers."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with native.vcf_text(path, threads) as vt:
+        W = choose_window(int(vt.line_lengths.max()))
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for i, donor in enumerate(donors):
+            dec = tokenize_vcf_device(vt, donor, device=dev)
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated() - mem0
+            check(not dec["long_line"].any(), f"{what}: a line past the window")
+            got = snp_struct_from_decoded(dec, dec["chrom"], chrom_filter=chrom)
+            check(got.dtype == want[donor].dtype and got.tobytes() == want[donor].tobytes(),
+                  f"{what} {donor}: the tokenizer's struct differs")
+        n_cpu = token_on_cpu(vt, dec, donors[-1], what)
+        out = {"records": vt.n_lines, "W": W, "text_bytes": int(vt.text.shape[0]),
+               "peak_mem_gib": peak / 2**30, "cpu_lines": n_cpu}
+    return dec, out
+
+
+def streaming_reads(card: str, path: str, donor: str, whole: dict, dev, threads: int,
+                    what: str, region=None) -> dict:
+    """``tokenize_vcf_streaming`` on the card, cut into at least
+    ``MIN_CHUNKS`` chunks: every column bit-equal to the whole-file rows of
+    the lines it read.  Returns its wall time and its stats."""
+    with native.BgzfRangeReader(path) as reader:
+        total = reader.total_usize
+    chunk_bytes = total // (10 * MIN_CHUNKS if region else MIN_CHUNKS + 2)
+    st = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = tokenize_vcf_streaming(path, donor, threads, chunk_bytes=chunk_bytes,
+                                 region=region, device=dev, stats=st)
+    wall = time.perf_counter() - t0
+    check(st["chunks"] >= MIN_CHUNKS, f"{what}: {st['chunks']} chunks")
+    n = got["start"].shape[0]
+    if region is None:
+        check_columns(got, whole, f"{what}: streaming against the whole file")
+        j = 0
+    else:
+        # the lines read start at the .tbi's seek: find them in the whole file
+        cands = np.flatnonzero(whole["start"] == got["start"][0])
+        j = next((int(c) for c in cands if all(
+            np.array_equal(got[k], whole[k][c:c + n]) for k in whole)), None)
+        check(j is not None, f"{what}: the region read matches no run of the whole file")
+        check_columns(got, {k: v[j:j + n] for k, v in whole.items()}, what)
+        beg, end = region[1], region[2]
+        inside = np.flatnonzero((whole["start"] >= beg) & (whole["start"] < end))
+        check(n < whole["start"].shape[0] and j <= inside[0] and inside[-1] < j + n,
+              f"{what}: the read does not cover the region")
+    out = {"chunk_bytes": chunk_bytes, "records": n, "first_row": j, "wall_s": wall, **st}
+    log(f"[{card}] tokenizer streaming {what}: {n:,} records in {st['chunks']} chunks of "
+        f"{chunk_bytes / 2**20:.1f} MiB at W={st['W']}, {wall:.3f} s (host clock to the host "
+        f"columns); the loop's host time {st['host_s']:.3f} s, the device's {st['device_ms']:.2f} "
+        f"ms (CUDA events, each chunk's copy to its last op), sum {st['host_s'] + st['device_ms'] / 1e3:.3f} s; "
+        "every column bit-equal to the whole-file tokenizer's")
+    return out
+
+
+def writer_round_trip(tmp: str, path22: str, want: dict, threads: int, dev) -> dict:
+    """The cohort file's first ``WRITER_RECORDS`` records, cut to the donors of
+    ``want``, as plain text (the source) and through ``VcfWriter`` (``z``) and
+    ``BcfWriter`` (``b``); each read back, its structs byte-equal to the
+    source's and those to the head of ``want[donor]`` (phase 14's structs)."""
+    donors = list(want)
+    with native.vcf_text(path22, threads) as vt:
+        head = int(vt.line_offsets[0])
+        stop = int(vt.line_offsets[WRITER_RECORDS - 1] + vt.line_lengths[WRITER_RECORDS - 1])
+        header = VcfHeader.from_text(vt.text[:head].tobytes().decode())
+        keep = [9 + vt.samples.index(d) for d in donors]
+        rows = vt.text[head:stop].tobytes().split(b"\n")
+    header.set_samples(donors)
+    lines = ["\t".join(f[i].decode() for i in list(range(9)) + keep)
+             for f in (r.split(b"\t") for r in rows)]
+    src = os.path.join(tmp, "writer_source.vcf")
+    with open(src, "w") as f:
+        f.write(header.as_string() + "\n".join(lines) + "\n")
+    times, paths = {}, {"z": os.path.join(tmp, "written.vcf.gz"),
+                        "b": os.path.join(tmp, "written.bcf")}
+    for mode, cls in (("z", VcfWriter), ("b", BcfWriter)):
+        t0 = time.perf_counter()
+        with cls(paths[mode], header=header, mode=mode) as w:
+            for line in lines:
+                w.write_line(line)
+        times[mode] = time.perf_counter() - t0
+    check(is_bcf(paths["b"]) and not is_bcf(paths["z"]), "the writers' formats")
+    conv = VCFtoHDF5Converter("smoke_wr", tmp, os.path.join(tmp, "out_wr"),
+                              os.path.join(tmp, "samples.txt"), cores=1, cxx_threads=threads,
+                              single_pass=False, device=dev)
+    n_snps = 0
+    for d in donors:
+        source, n = conv.parse_snps(src, d, "chr22")
+        check(n == WRITER_RECORDS, f"writer source {d}: {n} records")
+        check(source.tobytes() == want[d][: len(source)].tobytes(),
+              f"writer source {d}: not the head of phase 14's struct")
+        for mode in ("z", "b"):
+            got, _ = conv.parse_snps(paths[mode], d, "chr22")
+            check(got.tobytes() == source.tobytes(), f"VcfWriter({mode!r}) {d}: struct differs")
+        cols = bcf_decoded_columns(paths["b"], d, threads=threads)
+        got = snp_struct_from_decoded(cols, cols["chrom"], chrom_filter="chr22")
+        check(got.tobytes() == source.tobytes(), f"bcf_decoded_columns {d}: struct differs")
+        n_snps += len(source)
+    sizes = {m: os.path.getsize(p) for m, p in paths.items()}
+    log(f"writers: the first {WRITER_RECORDS:,} chr22 records for {len(donors)} donors through "
+        f"VcfWriter('z') {times['z']:.2f} s ({sizes['z'] / 1e6:.2f} MB) and BcfWriter('b') "
+        f"{times['b']:.2f} s ({sizes['b'] / 1e6:.2f} MB); read back through parse_snps and "
+        f"bcf_decoded_columns, {n_snps:,} SNP rows byte-equal to the source's")
+    return {"records": WRITER_RECORDS, "donors": len(donors), "vcf_z_s": times["z"],
+            "bcf_b_s": times["b"], "bytes": sizes}
+
+
+def tokenizer_phase(card: str, tmp: str, dev, ctx: dict) -> dict:
+    """Phase 16 (``ctx``: phase 8's files, donors and structs; phase 14's
+    cohort file and some of its donors' structs)."""
+    t_phase = time.perf_counter()
+    threads, samples, chr1, chr22 = ctx["threads"], ctx["samples"], ctx["chr1"], ctx["chr22"]
+    out = {"card": card}
+
+    # -- the whole-file route: chr1's 8 donors against phase 8's frame12 structs
+    whole1, out["chr1"] = whole_file_on_card(chr1, samples, ctx["structs"], "chr1", dev, threads,
+                                             "chr1")
+    donors22 = list(ctx["structs22"])
+    whole22, out["chr22"] = whole_file_on_card(chr22, donors22, ctx["structs22"], "chr22", dev,
+                                               threads, "chr22")
+    log(f"tokenizer checks: tokenize_vcf_device on the card, chr1's {len(samples)} structs "
+        f"byte-equal to phase 8's frame12 structs and chr22's {len(donors22)} to phase 14's; "
+        f"{out['chr1']['cpu_lines']:,} + {out['chr22']['cpu_lines']:,} lines bit-equal to the "
+        f"CPU's, every column")
+
+    # -- the streaming route, whole and by region, against the whole file
+    out["stream_chr1"] = streaming_reads(card, chr1, samples[-1], whole1, dev, threads, "chr1")
+    out["stream_chr22"] = streaming_reads(card, chr22, donors22[-1], whole22, dev, threads,
+                                          "chr22")
+    t0 = time.perf_counter()
+    build_index(chr22)
+    out["build_index_s"] = time.perf_counter() - t0
+    out["stream_region"] = streaming_reads(card, chr22, donors22[-1], whole22, dev, threads,
+                                           f"chr22 region {REGION22}", region=REGION22)
+
+    # -- the converter's tokenizer branch on the 300-contig file
+    kw = dict(cores=1, cxx_threads=threads, chromosomes=[1], single_pass=False, device=dev)
+    tok = VCFtoHDF5Converter("smoke_tok", tmp, os.path.join(tmp, "out_tok"), ctx["samples_path"],
+                             use_tokenizer=True, **kw)
+    ref64 = VCFtoHDF5Converter("smoke_tok", tmp, os.path.join(tmp, "out_64"),
+                               ctx["samples_path"], **kw)
+    for fn in (decode_frames12_kernel, decode_frames_kernel, encode_windows_kernel):
+        fn.launches = 0
+    branch = {d: tok.parse_snps(ctx["ctg_path"], d, None) for d in samples[:2]}
+    torch.cuda.synchronize()
+    launches = _kernel_launches()
+    check(not any(launches.values()), f"the tokenizer branch launched {launches}")
+    for d, (s, n) in branch.items():
+        want, wn = ref64.parse_snps(ctx["ctg_path"], d, None)
+        check(n == wn and s.tobytes() == want.tobytes(),
+              f"tokenizer branch {d}: struct differs from the 64-byte route's")
+    log(f"converter tokenizer branch: parse_snps(use_tokenizer=True) on the {N_CONTIGS}-contig "
+        f"file for {len(branch)} donors byte-equal to the 64-byte route "
+        f"({len(branch[samples[0]][0]):,} SNPs for {samples[0]}); kernel launches {launches}")
+    out["branch_launches"] = launches
+
+    # -- the writers, and the variant table
+    out["writers"] = writer_round_trip(tmp, chr22, ctx["structs22"], threads, dev)
+    t0 = time.perf_counter()
+    table = VariantTable.from_vcf(chr22)
+    out["variant_table_s"] = time.perf_counter() - t0
+    check(table.n == whole22["start"].shape[0], "VariantTable records")
+    check(np.array_equal(table.is_snp(), whole22["snp_mask"])
+          and np.array_equal(table.start, whole22["start"]),
+          "VariantTable's SNP mask or start differs from the tokenizer's")
+    log(f"[{card}] VariantTable.from_vcf on chr22: {table.n:,} records in "
+        f"{out['variant_table_s']:.2f} s; is_snp ({int(table.is_snp().sum()):,}) and start equal "
+        "to the tokenizer's snp_mask and start")
+    del table, whole1, whole22
+
+    # -- times: the tokenizer's task against frame12's on one donor, in turns
+    donor = samples[0]
+    tasks = {"tokenizer": [], "frame12": []}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        got = tokenizer_task(chr1, "chr1", donor, dev, threads)
+        tasks["tokenizer"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        want, _ = ref64.parse_snps(chr1, donor, "chr1")
+        tasks["frame12"].append(time.perf_counter() - t0)
+        check(got.tobytes() == want.tobytes(), "timed tokenizer task")
+    n1 = out["chr1"]["records"]
+    out["task_s"] = tasks
+    out["records_per_s"] = {k: n1 / min(v) for k, v in tasks.items()}
+    log(f"[{card}] tokenizer task on chr1 for {donor} (vcf_text + tokenize_vcf_device + struct): "
+        f"{', '.join(f'{x:.3f}' for x in tasks['tokenizer'])} s, "
+        f"{out['records_per_s']['tokenizer']:,.0f} records/s; the frame12 task (parse_snps) "
+        f"{', '.join(f'{x:.3f}' for x in tasks['frame12'])} s, "
+        f"{out['records_per_s']['frame12']:,.0f} records/s (host clock, in turns)")
+    for what, path, chrom, d in (("chr1", chr1, "chr1", donor),
+                                 ("chr22", chr22, "chr22", donors22[0])):
+        split, struct = token_split(path, chrom, d, dev, threads)
+        want = ctx["structs"][d] if what == "chr1" else ctx["structs22"][d]
+        check(struct.tobytes() == want.tobytes(), f"{what} split: struct differs")
+        out[what] |= split
+        log(f"[{card}] tokenizer split {what} ({split['records']:,} records, W={split['W']}; s, "
+            "each stage to a synchronize): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split["split_s"].items())
+            + f"; device ops {split['device_ms']:.3f} ms (CUDA events, best of "
+            f"{', '.join(f'{m:.3f}' for m in split['device_ms_runs'])}) against a bound of "
+            f"{split['bound_ms']:.4f} ms (N x (2W + 39) bytes at 3.35 TB/s), "
+            f"{split['bound_ms'] / split['device_ms']:.3f} of it; by stage (ms, CUDA events) "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split["stage_ms"].items())
+            + f"; peak device memory {out[what]['peak_mem_gib']:.3f} GiB")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"tokenizer phase: {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2009,7 +2405,7 @@ def main() -> int:
     # -- 7-10. the converter -------------------------------------------------
     dec = DecodeComparisons()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    conv_dir = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)  # phases 7-10, 14, 15
+    conv_dir = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)  # phases 7-10, 14-16
     try:
         tmp = conv_dir.name
         ctx = converter_main_path(tmp, args.seed, dev, dec)
@@ -2043,6 +2439,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         reference, ref_launches = reference_phase(card, tmp, args.seed, dev, cmp)
         log(json.dumps({"reference": reference}))
+
+        # -- 16. the tokenizer route and the host I/O surface ---------------
+        torch.cuda.empty_cache()
+        log(json.dumps({"tokenizer": tokenizer_phase(card, tmp, dev, ctx)}))
     finally:
         conv_dir.cleanup()
 

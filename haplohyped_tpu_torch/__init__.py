@@ -25,6 +25,7 @@ from haplohyped_tpu_torch.data.regions import load_bed_regions
 from haplohyped_tpu_torch.data.sampler import DeviceHaplotypeSampler, HaplotypeBatch
 from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
 from haplohyped_tpu_torch.models.train import train_on_sampler
+from haplohyped_tpu_torch.version import __version__
 
 __all__ = [
     "CohortTensors",
@@ -36,4 +37,5 @@ __all__ = [
     "SamplerConfig",
     "load_bed_regions",
     "train_on_sampler",
+    "__version__",
 ]

@@ -5,6 +5,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass, field
+from typing import Sequence
 
 import torch
 
@@ -80,7 +81,9 @@ class ConvertConfig:
     #: the Hopper kernels on CUDA, the kernels' plain versions on the CPU)
     #: instead of numpy
     device_decode: bool = True
-    #: the raw-text tokenizer route; not ported (see ``ROADMAP.md``)
+    #: where the 12-byte framer refuses a file (> 255 contigs), tokenize its
+    #: raw text on the device (``ops/vcf_tokenize.py``) before the 64-byte
+    #: route; off by default, as in the JAX package
     use_tokenizer: bool = False
     #: frame each chromosome once for every donor (False: once per donor)
     single_pass: bool = True
@@ -123,6 +126,11 @@ class FastaEncodeConfig:
 
     def replace(self, **kw) -> "FastaEncodeConfig":
         return dataclasses.replace(self, **kw)
+
+
+def chrom_list(chromosomes: Sequence[int | str]) -> list[str]:
+    """Chromosome identifiers in the ``chr{n}`` form."""
+    return [s if s.startswith("chr") else f"chr{s}" for s in map(str, chromosomes)]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -75,3 +75,8 @@ INT32_MAX: int = int(np.iinfo(np.int32).max)
 def cohort_group_path(donor_id: str, chromosome: int | str) -> str:
     """HDF5 group path for one (donor, chromosome) SNP table."""
     return f"donor_{donor_id}/chr_{chromosome}"
+
+
+def reference_dataset_path(chrom: str) -> str:
+    """HDF5 dataset path for one chromosome's one-hot sequence."""
+    return f"{chrom}/{SEQUENCE_DATASET_NAME}"

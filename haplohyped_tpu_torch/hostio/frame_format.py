@@ -419,6 +419,24 @@ class FramedRecords:
         return int(self.records.shape[0])
 
 
+def frames_to_fields(records: np.ndarray) -> dict[str, np.ndarray]:
+    """An (n, 64) frame matrix as named column views."""
+    r = np.ascontiguousarray(records, dtype=np.uint8)
+    return {
+        "chrom": r[:, CHROM_OFF : CHROM_OFF + CHROM_CAP],
+        "chrom_len": r[:, CHROM_LEN_OFF],
+        "pos": r[:, POS_OFF : POS_OFF + POS_CAP],
+        "pos_len": r[:, POS_LEN_OFF],
+        "ref": r[:, REF_OFF : REF_OFF + REF_CAP],
+        "ref_len": r[:, REF_LEN_OFF],
+        "alt": r[:, ALT_OFF : ALT_OFF + ALT_CAP],
+        "alt_len": r[:, ALT_LEN_OFF],
+        "gt": r[:, GT_OFF : GT_OFF + GT_CAP],
+        "gt_len": r[:, GT_LEN_OFF],
+        "flags": r[:, FLAGS_OFF],
+    }
+
+
 def pack_frame(
     chrom: bytes,
     pos: bytes,

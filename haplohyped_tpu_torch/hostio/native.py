@@ -1,9 +1,11 @@
 """ctypes bindings of the native VCF/BCF reader (``cpp/hostio.cpp``,
 ``cpp/bcf.cpp``).
 
-The port binds the functions its converter and FASTA readers call: the VCF
-framers (``hh_vcf_samples``, ``hh_vcf_frame``, ``hh_vcf_frame12``,
-``hh_vcf_frame_v2``), the BGZF block reader behind the tabix index builder
+The port binds the functions its converter, tokenizer, variant table and
+FASTA readers call: the VCF framers (``hh_vcf_samples``, ``hh_vcf_frame``,
+``hh_vcf_frame12``, ``hh_vcf_frame_v2``), the decompressed text with its
+line index (``hh_vcf_text``) and tab/POS index (``hh_vcf_index``), the BGZF
+block reader behind the tabix index builder and the streaming tokenizer
 (``hh_bgzf_*``), the BCF parser (``hh_bcf_samples``, ``hh_bcf_parse``,
 ``hh_bcf_parse_v2``) and the whole-file FASTA reader (``hh_fasta_*``), of a
 library that
@@ -62,6 +64,10 @@ def _load() -> ctypes.CDLL:
     lib.hh_vcf_frame_v2.argtypes = (
         [s, s, s, i, i64, i64, i64, out, out, pi64, p(ctypes.c_int32), out, out, pi64,
          out, out, pi64, out, out, pi64, pi64, s, i])
+    # path, threads, text, text_len, line_off, line_len, n_lines, samples, err
+    lib.hh_vcf_text.argtypes = [s, i, out, pi64, out, out, pi64, out, s, i]
+    # ... n_lines, bounds, pos, samples, err
+    lib.hh_vcf_index.argtypes = [s, i, out, pi64, out, out, pi64, out, out, out, s, i]
     lib.hh_bgzf_open.argtypes = [s, pi64, pi64, s, i]
     lib.hh_bgzf_open.restype = vp
     lib.hh_bgzf_close.argtypes = [vp]
@@ -87,10 +93,20 @@ def _load() -> ctypes.CDLL:
     lib.hh_fasta_fetch.argtypes = [vp, s, i64, i64, vp]
     lib.hh_fasta_fetch.restype = i64
     for fn in (lib.hh_vcf_samples, lib.hh_vcf_frame, lib.hh_vcf_frame12, lib.hh_vcf_frame_v2,
-               lib.hh_bgzf_decode_range, lib.hh_bcf_samples, lib.hh_bcf_parse,
+               lib.hh_vcf_text, lib.hh_vcf_index, lib.hh_bgzf_decode_range, lib.hh_bcf_samples, lib.hh_bcf_parse,
                lib.hh_bcf_parse_v2):
         fn.restype = ctypes.c_int
     return lib
+
+
+def native_available() -> bool:
+    """Whether the native library builds and loads here.  A route that needs
+    it calls it and raises where it cannot: nothing skips on this answer."""
+    try:
+        _load()
+    except (OSError, RuntimeError):
+        return False
+    return True
 
 
 def _arg(text: str | None) -> bytes | None:
@@ -241,6 +257,118 @@ def vcf_frame_v2(
         )
     finally:
         _free_all(lib, (fixed, gt, exc_idx, exc_pos, run_counts, run_ids, chroms, names))
+
+
+def _view(ptr: ctypes.c_void_p, ctype, shape: tuple[int, ...]) -> np.ndarray:
+    """A numpy view of a native buffer (no copy; the buffer must outlive it)."""
+    if 0 in shape:
+        return np.zeros(shape, np.dtype(ctype))
+    return np.ctypeslib.as_array(ctypes.cast(ptr, ctypes.POINTER(ctype)), shape=shape)
+
+
+class VCFText:
+    """A VCF's decompressed text and the offsets and lengths of its data
+    lines (no newline, no carriage return), as numpy views over native buffers.
+
+    Keep the object alive while the arrays are used; ``close()`` (or garbage
+    collection) frees the native memory and drops the views."""
+
+    def __init__(self, text, line_offsets, line_lengths, samples, _frees):
+        self.text: np.ndarray = text  # (T,) uint8
+        self.line_offsets: np.ndarray = line_offsets  # (N,) int64
+        self.line_lengths: np.ndarray = line_lengths  # (N,) int32
+        self.samples: list[str] = samples
+        self._lib, self._frees = _load(), _frees
+
+    @property
+    def n_lines(self) -> int:
+        return int(self.line_offsets.shape[0])
+
+    def close(self) -> None:
+        frees, self._frees = self._frees, []
+        self.text = self.line_offsets = self.line_lengths = None
+        for ptr in frees:
+            self._lib.hh_free(ptr)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self):
+        self.close()
+
+
+class VCFIndex(VCFText):
+    """:class:`VCFText` plus each line's first 9 tab positions ``bounds``
+    (n, 9) int32, relative to the line's start and clipped to its length
+    where it has fewer, and its POS ``pos`` (n,) int64 (0 where malformed or
+    longer than 12 digits): the index behind ``hostio.variants.VariantTable``."""
+
+    def __init__(self, text, line_offsets, line_lengths, samples, bounds, pos, _frees):
+        super().__init__(text, line_offsets, line_lengths, samples, _frees)
+        self.bounds: np.ndarray = bounds  # (n, 9) int32
+        self.pos: np.ndarray = pos  # (n,) int64
+
+    def close(self) -> None:
+        super().close()
+        self.bounds = self.pos = None
+
+
+def _text_call(fn, path: str, threads: int, extra: int):
+    """Call ``hh_vcf_text`` (``extra`` 0) or ``hh_vcf_index`` (``extra`` 2,
+    the bounds and POS buffers).  Returns the sizes and every buffer, the
+    samples string last; raises (nothing allocated) where the call fails."""
+    text, offs, lens, samples = (ctypes.c_void_p() for _ in range(4))
+    more = [ctypes.c_void_p() for _ in range(extra)]
+    text_len, n_lines = ctypes.c_int64(), ctypes.c_int64()
+    err = ctypes.create_string_buffer(_ERR_CAP)
+    rc = fn(path.encode(), threads, ctypes.byref(text), ctypes.byref(text_len),
+            ctypes.byref(offs), ctypes.byref(lens), ctypes.byref(n_lines),
+            *(ctypes.byref(p) for p in more), ctypes.byref(samples), err, _ERR_CAP)
+    if rc != 0:
+        raise RuntimeError(err.value.decode() or f"{fn.__name__} failed ({rc})")
+    return int(text_len.value), int(n_lines.value), [text, offs, lens, *more, samples]
+
+
+def vcf_text(path: str, threads: int = 1) -> VCFText:
+    """Decompress a VCF and index its data lines natively (no per-field host
+    work): the host half of the tokenizer route."""
+    lib = _load()
+    t, n, ptrs = _text_call(lib.hh_vcf_text, path, threads, 0)
+    try:
+        samples = _lines(ptrs[-1])
+        return VCFText(_view(ptrs[0], ctypes.c_uint8, (t,)),
+                       _view(ptrs[1], ctypes.c_int64, (n,)),
+                       _view(ptrs[2], ctypes.c_int32, (n,)),
+                       samples, _frees=ptrs[:3])
+    except BaseException:
+        _free_all(lib, ptrs[:3])
+        raise
+    finally:
+        lib.hh_free(ptrs[-1])
+
+
+def vcf_index(path: str, threads: int = 1) -> VCFIndex:
+    """Decompress a VCF and index its lines, tabs and POS in one threaded
+    native pass."""
+    lib = _load()
+    t, n, ptrs = _text_call(lib.hh_vcf_index, path, threads, 2)
+    try:
+        samples = _lines(ptrs[-1])
+        return VCFIndex(_view(ptrs[0], ctypes.c_uint8, (t,)),
+                        _view(ptrs[1], ctypes.c_int64, (n,)),
+                        _view(ptrs[2], ctypes.c_int32, (n,)),
+                        samples,
+                        _view(ptrs[3], ctypes.c_int32, (n, 9)),
+                        _view(ptrs[4], ctypes.c_int64, (n,)),
+                        _frees=ptrs[:5])
+    except BaseException:
+        _free_all(lib, ptrs[:5])
+        raise
+    finally:
+        lib.hh_free(ptrs[-1])
 
 
 def bcf_samples(path: str, threads: int = 1) -> list[str]:

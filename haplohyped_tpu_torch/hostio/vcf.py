@@ -180,3 +180,7 @@ class VCFSource:
             recs.append(pack_frame(fields[0], fields[1], fields[3], fields[4], gt))
         records = np.stack(recs) if recs else np.zeros((0, REC_SIZE), dtype=np.uint8)
         return FramedRecords(records=records, total_seen=seen)
+
+    def count_variants(self, region: str | None = None) -> int:
+        """Records in the file, or in ``region`` (``BcfReader::getVariantsCount``)."""
+        return self.frame(None, region).n

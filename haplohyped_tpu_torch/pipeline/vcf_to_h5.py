@@ -21,7 +21,10 @@ paths make it:
   parse without a region meets more than 255 contigs), assembles the struct
   and writes a temp shard ``{cohort}_tmp_donor_{id}_chr_{n}.h5``; donors fan
   out over a thread pool and the shards are merged.  A BCF input is parsed
-  on the host.
+  on the host.  With ``use_tokenizer=True`` (off by default, as in the JAX
+  package), a file the 12-byte framer refuses goes through the raw-text
+  tokenizer (``ops/vcf_tokenize.py``, torch ops on ``device``) before the
+  64-byte route, which then takes only files with a line past the window.
 
 Every failed task is recorded and the rest of the cohort converts;
 ``resume=True`` skips (donor, chromosome) shards whose temp file exists.
@@ -29,7 +32,7 @@ On ``device="cpu"`` the kernels' plain PyTorch versions run.  An empty frame,
 and ``device_decode=False``, decode with numpy.  There is no device probe
 and no host rerouting: a CUDA failure raises.  ``h5py`` is imported only
 where a file is written, so ``convert_chromosome(c, writer=...)`` runs
-without it.  The raw-text tokenizer route is not ported.
+without it.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from haplohyped_tpu_torch.core.constants import (
     cohort_group_path,
 )
 from haplohyped_tpu_torch.core.metrics import GLOBAL_METRICS
+from haplohyped_tpu_torch.hostio import native
 from haplohyped_tpu_torch.hostio.bcf import (
     bcf_decoded_columns,
     bcf_decoded_v2,
@@ -75,6 +79,7 @@ from haplohyped_tpu_torch.ops.vcf_decode import (
     unpack12_columns,
     unpack64_columns,
 )
+from haplohyped_tpu_torch.ops.vcf_tokenize import tokenize_vcf_device
 from haplohyped_tpu_torch.pipeline.records import (
     snp_struct_from_decoded,
     snp_struct_from_frames,
@@ -191,6 +196,7 @@ class VCFtoHDF5Converter:
         chromosomes=None,
         single_pass: bool = True,
         direct_write: bool = True,
+        use_tokenizer: bool = False,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
@@ -205,6 +211,7 @@ class VCFtoHDF5Converter:
             device_decode=device_decode,
             single_pass=single_pass,
             direct_write=direct_write,
+            use_tokenizer=use_tokenizer,
         )
         if chromosomes is not None:
             cfg = cfg.replace(chromosomes=tuple(chromosomes))
@@ -299,8 +306,11 @@ class VCFtoHDF5Converter:
         ``chrom_str`` restricts framing to one chromosome, as every task of
         :meth:`run` does; ``None`` frames every contig of the file.  The
         12-byte route refuses more than 255 distinct contigs *after* that
-        filter, so only a parse without a region of such a file takes the
-        64-byte route (as in the JAX package).  A BCF is parsed on the host."""
+        filter, so only a parse without a region of such a file leaves it
+        (as in the JAX package): for the tokenizer where ``use_tokenizer``
+        is on, then for the 64-byte route where a line is longer than the
+        tokenizer's window, or the tokenizer is off.  A BCF is parsed on the
+        host."""
         if is_bcf(data_path):
             decoded = bcf_decoded_columns(data_path, donor_id, threads=self.cxx_threads)
             struct = snp_struct_from_decoded(decoded, decoded["chrom"], chrom_filter=chrom_str)
@@ -321,6 +331,16 @@ class VCFtoHDF5Converter:
                     with _device_lock:
                         decoded = _decode12(rec12, self.device)
                 return snp_struct_from_frames12(decoded, chrom_table), seen
+
+        if self.config.device_decode and self.config.use_tokenizer:
+            with native.vcf_text(data_path, threads=self.cxx_threads) as text:
+                with _device_lock:
+                    decoded = tokenize_vcf_device(text, donor_id, device=self.device)
+            if not decoded["long_line"].any():
+                struct = snp_struct_from_decoded(decoded, decoded["chrom"], chrom_filter=chrom_str)
+                return struct, int(decoded["start"].shape[0])
+            logger.info("lines exceed the tokenizer's window; using the 64-byte layout for %s",
+                        data_path)
 
         framed = src.frame(sample=donor_id, region=chrom_str)
         if self.config.device_decode:

@@ -6,8 +6,9 @@ compared on one card in turns (parent, change, change, parent):
         --phase single_pass --tag <name> [--out FILE]
 
 ``single_pass`` runs phases 7-8 (the converter's input, its per-donor path)
-then phase 14 (the single-pass converter); ``reference`` runs phase 15 (the
-reference path).  The tree's own package and kernels are used (built into
+then phase 14 (the single-pass converter); ``tokenizer`` runs those, then
+phase 16 (the tokenizer route and the host I/O surface); ``reference`` runs
+phase 15 (the reference path).  The tree's own package and kernels are used (built into
 its ``_build/``).  Needs a CUDA card.
 """
 
@@ -23,7 +24,7 @@ import time
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("single_pass", "reference"), required=True)
+    ap.add_argument("--phase", choices=("single_pass", "tokenizer", "reference"), required=True)
     ap.add_argument("--tag", required=True, help="the tree's name in the output")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the JSON object to this file")
@@ -42,12 +43,15 @@ def main(argv=None) -> int:
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {"tag": args.tag, "phase": args.phase, "card": card}
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        if args.phase == "single_pass":
+        if args.phase in ("single_pass", "tokenizer"):
             t0 = time.perf_counter()
             ctx = cs.converter_main_path(tmp, args.seed, dev, cs.DecodeComparisons())
             out["phases_7_8_s"] = time.perf_counter() - t0
             out["per_donor_task_s"] = ctx["task_s"]
             out["single_pass"] = cs.single_pass_phase(card, tmp, args.seed, dev, ctx)
+            if args.phase == "tokenizer":
+                torch.cuda.empty_cache()
+                out["tokenizer"] = cs.tokenizer_phase(card, tmp, dev, ctx)
         else:
             out["reference"] = cs.reference_phase(card, tmp, args.seed, dev, cs.Comparisons())[0]
     line = json.dumps(out)

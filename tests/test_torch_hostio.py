@@ -151,3 +151,51 @@ def test_is_bcf(vcfs, test_data_dir, tmp_path):
         assert is_bcf(path) and jax_native.is_bcf(path)
     for path in (vcf, vcfs["edge"][0]):
         assert not is_bcf(path) and not jax_native.is_bcf(path)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_frames_to_fields_matches_jax(vcfs, name):
+    from haplohyped_tpu.hostio.frame_format import frames_to_fields as jax_fields
+
+    from haplohyped_tpu_torch.hostio.frame_format import frames_to_fields
+
+    path, samples = vcfs[name]
+    records = VCFSource(path).frame(samples[-1]).records
+    got, want = frames_to_fields(records), jax_fields(records)
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("region", REGIONS)
+@pytest.mark.parametrize("name", NAMES)
+def test_count_variants_matches_jax(vcfs, name, region):
+    path, _ = vcfs[name]
+    got = VCFSource(path).count_variants(region)
+    assert got == JaxVCFSource(path).count_variants(region)
+    assert got == VCFSource(path, use_native=False).count_variants(region)
+
+
+def test_vcf_text_and_index_match_jax(vcfs):
+    """The native text and index bindings: the same bytes, offsets, tab
+    bounds and POS as the JAX package's, and nothing left after close()."""
+    for name in NAMES:
+        path, samples = vcfs[name]
+        got, want = native.vcf_index(path, threads=2), jax_native.vcf_index(path, threads=2)
+        try:
+            assert got.samples == want.samples == samples and got.n_lines == want.n_lines
+            for k in ("text", "line_offsets", "line_lengths", "bounds", "pos"):
+                g, w = getattr(got, k), getattr(want, k)
+                assert g.dtype == w.dtype and np.array_equal(g, w), k
+        finally:
+            got.close()
+            want.close()
+        assert got.text is None and got.bounds is None
+        jax_text = jax_native.vcf_text(path)
+        with native.vcf_text(path) as text:
+            np.testing.assert_array_equal(text.line_offsets, jax_text.line_offsets)
+        jax_text.close()
+    assert native.native_available()
+    with pytest.raises(RuntimeError):
+        native.vcf_text(str(vcfs["edge"][0]) + ".missing")
