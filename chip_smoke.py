@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--seed N] [--train-times]
+    python3 chip_smoke.py [--seed N] [--train-times | --parallel DIR]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -144,11 +144,31 @@ Phases (any failure exits non-zero; nothing is caught):
    streaming reads' wall time beside their host and device time, the peak
    device memory at each W, and ``VariantTable.from_vcf`` seconds.
 
+17. The parallel path at world size 1, in a process of its own (``--parallel
+   DIR`` runs it alone on the files of phases 7 and 14 under DIR): NCCL with
+   one rank through ``make_mesh(MeshConfig(1, 1))`` on the deployment state of
+   ``--seed``.  ``make_train_step(mesh)`` at ``HaploFormerConfig()``, B=64,
+   L=1000 on sampler batches, its losses, parameters and AdamW slots
+   bit-equal to ``make_train_step()``'s from the same seed after each of 5
+   steps, both timed in turns (CUDA events) and traced (``torch.profiler``),
+   and bit-equal again after;
+   ``train_on_sampler(mesh=...)`` for 3 steps with the window kernel's
+   launches counted (one a batch); ``sharded_decode_frames`` on one donor's
+   chr1 64-byte frames (one decode64 launch, counted) bit-equal to the
+   unsharded kernel call and to the plain version;
+   ``ShardedGenome.from_codes`` of the deployment genome from the host (halo
+   1000) and ``sharded_window_gather`` of a (64, 1000) batch, each window
+   equal to the codes' slice and one start past the last shard giving zeros;
+   ``all_gather_cohort`` and ``psum_counts`` on the cohort's counts;
+   ``convert_sharded(device_decode=True)`` on phase 14's chr22 x 128 file,
+   one file pass, every column byte-equal to ``CohortTensors.from_structs``
+   of the single pass's structs.
+
 The lines before the last are a JSON object ``{"train": {...}}`` of phase
 13's numbers, one ``{"single_pass": {...}}`` of phase 14's, one
 ``{"reference": {...}}`` of phase 15's, one ``{"tokenizer": {...}}`` of
-phase 16's, then one with one entry per kernel; the last line is
-``{"ok": true, "device": {...}}``.
+phase 16's, one ``{"parallel": {...}}`` of phase 17's, then one with one
+entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -170,8 +190,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from haplohyped_tpu_torch import DeviceHaplotypeSampler, GenomeTensors, SamplerConfig
+from haplohyped_tpu_torch import DeviceHaplotypeSampler, GenomeTensors, MeshConfig, SamplerConfig
 from haplohyped_tpu_torch.core.constants import (
     INT32_MAX,
     N_CODE,
@@ -184,7 +205,9 @@ from haplohyped_tpu_torch.core.timing import (
     card_line,
     device_ms,
 )
+from haplohyped_tpu_torch.data.cohort import CohortTensors
 from haplohyped_tpu_torch.hostio import native
+from haplohyped_tpu_torch.hostio import vcf as hostio_vcf
 from haplohyped_tpu_torch.hostio.bcf import bcf_decoded_columns, is_bcf
 from haplohyped_tpu_torch.hostio.fai import FaidxFasta, build_fai
 from haplohyped_tpu_torch.hostio.fasta import FastaReader
@@ -224,6 +247,7 @@ from haplohyped_tpu_torch.ops.pack import (
     unpack_2bit_device,
 )
 from haplohyped_tpu_torch.ops.vcf_decode import (
+    decode_frames,
     decode_frames12_packed,
     decode_frames_packed,
     decode_frames_v2,
@@ -232,6 +256,7 @@ from haplohyped_tpu_torch.ops.vcf_decode import (
     decode_v2_records,
     decoded_to_numpy,
     unpack12_columns,
+    unpack64_decoded,
 )
 from haplohyped_tpu_torch.ops.vcf_stream import tokenize_vcf_streaming
 from haplohyped_tpu_torch.ops.vcf_tokenize import (
@@ -262,6 +287,13 @@ from haplohyped_tpu_torch.ops.window_lab import (
     encode_windows_lab,
     lab_plain,
     lab_smem_bytes,
+)
+from haplohyped_tpu_torch.parallel import all_gather_cohort, make_mesh, sharded_decode_frames
+from haplohyped_tpu_torch.parallel.collectives import psum_counts
+from haplohyped_tpu_torch.parallel.genome_shard import ShardedGenome, sharded_window_gather
+from haplohyped_tpu_torch.parallel.sharded_convert import (
+    _structs_to_task_tensors,
+    convert_sharded,
 )
 from haplohyped_tpu_torch.pipeline.doctor import run_checks
 from haplohyped_tpu_torch.pipeline.fasta_encoder import encode_host, encode_onehot_and_codes
@@ -1587,6 +1619,25 @@ def _timed_file(card: str, what: str, path: str, chrom: str, samples: list, dev,
     return out
 
 
+def cohort_input(tmp: str, seed: int) -> tuple[str, str, list, str, float]:
+    """The chr22 cohort-width file (phases 14, 16 and 17) under ``tmp/cohort``:
+    ``(its directory, path, donors, sample-list path, seconds to write)``."""
+    cdir = os.path.join(tmp, "cohort")
+    os.makedirs(cdir)
+    donors = [f"HG{d:05d}" for d in range(N_COHORT_DONORS)]
+    donors_path = os.path.join(cdir, "samples.txt")
+    with open(donors_path, "w") as f:
+        f.write("\n".join(donors) + "\n")
+    path22 = os.path.join(cdir, "chr22.filtered.vcf.gz")
+    t0 = time.perf_counter()
+    kinds = write_cohort_vcf(path22, {"chr22": CHR22_LENGTH}, CHR22_RECORDS, donors, seed + 6)
+    write_s = time.perf_counter() - t0
+    log(f"cohort-width input: chr22 VCF, {CHR22_RECORDS:,} records over {CHR22_LENGTH:,} bp, "
+        f"{N_COHORT_DONORS} donors ({COHORT_CUT}), {os.path.getsize(path22) / 1e6:.1f} MB BGZF; "
+        f"records by kind {kinds}; written in {write_s:.1f} s")
+    return cdir, path22, donors, donors_path, write_s
+
+
 def single_pass_phase(card: str, tmp: str, seed: int, dev, ctx: dict) -> dict:
     """Phase 14 (``ctx``: phase 8's files, donors and per-donor structs; the
     cohort file's path and some of its donors' structs are added to it)."""
@@ -1637,20 +1688,8 @@ def single_pass_phase(card: str, tmp: str, seed: int, dev, ctx: dict) -> dict:
     out = {"card": card, "chr1": _timed_file(card, "chr1", chr1, "chr1", samples, dev, threads,
                                              sp, sp_s, peak, ctx["task_s"])}
 
-    # -- cohort width: chr22's record count, 256 donors
-    cdir = os.path.join(tmp, "cohort")
-    os.makedirs(cdir)
-    donors = [f"HG{d:05d}" for d in range(N_COHORT_DONORS)]
-    donors_path = os.path.join(cdir, "samples.txt")
-    with open(donors_path, "w") as f:
-        f.write("\n".join(donors) + "\n")
-    path22 = os.path.join(cdir, "chr22.filtered.vcf.gz")
-    t0 = time.perf_counter()
-    kinds = write_cohort_vcf(path22, {"chr22": CHR22_LENGTH}, CHR22_RECORDS, donors, seed + 6)
-    write_s = time.perf_counter() - t0
-    log(f"cohort-width input: chr22 VCF, {CHR22_RECORDS:,} records over {CHR22_LENGTH:,} bp, "
-        f"{N_COHORT_DONORS} donors ({COHORT_CUT}), {os.path.getsize(path22) / 1e6:.1f} MB BGZF; "
-        f"records by kind {kinds}; written in {write_s:.1f} s")
+    # -- cohort width: chr22's record count, 128 donors
+    cdir, path22, donors, donors_path, write_s = cohort_input(tmp, seed)
     conv22 = VCFtoHDF5Converter("smoke22", cdir, os.path.join(cdir, "out"), donors_path,
                                 chromosomes=[22], **kw)
     per22 = VCFtoHDF5Converter("smoke22", cdir, os.path.join(cdir, "out_pd"), donors_path,
@@ -2252,6 +2291,254 @@ def tokenizer_phase(card: str, tmp: str, dev, ctx: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the parallel path at world size 1
+# ---------------------------------------------------------------------------
+
+#: train steps held bit-equal to the unsharded step; then each step's timed
+#: steps (after 3 warm-up steps) in turns, unsharded, sharded, sharded,
+#: unsharded, N_PAR_TURNS times; train_on_sampler's steps
+N_PAR_CHECK, N_PAR_TIMED, N_PAR_TURNS, N_PAR_TRAIN_ON = 5, 20, 4, 3
+#: phase 17's convert_sharded may take this long on chr22 x 128 before the
+#: donors are cut (to 32)
+PAR_CONVERT_LIMIT_S = 120
+
+
+def _states_equal(a, b) -> bool:
+    """Parameters and AdamW slots of two train states bit-equal."""
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    return (all(torch.equal(x, y) for x, y in zip(a.model.parameters(), b.model.parameters()))
+            and all(torch.equal(sa[i][k], sb[i][k]) for i in sa for k in sa[i]))
+
+
+def parallel_train(card: str, seed: int, sampler, mesh) -> dict:
+    """``make_train_step(mesh)`` against ``make_train_step()`` from one seed
+    on the same sampler batches: losses, parameters and AdamW slots bit-equal
+    after each step; then their ms a step (CUDA events) in turns, unsharded,
+    sharded, sharded, unsharded (``N_PAR_TURNS`` times), after which the two
+    states must still be bit-equal; then ``train_on_sampler(mesh=...)`` with
+    the window kernel's launches counted.  A ``torch.profiler`` trace of
+    each step (device busy, device ops a step) follows the timing."""
+    cfg = HaploFormerConfig()
+    batches = [sampler.sample() for _ in range(N_PAR_CHECK + 3 + N_PAR_TIMED)]
+    first = batches[0]
+    kw = dict(seed=seed, device=sampler.device)
+    st = {"unsharded": create_train_state(cfg, (first.hap1, first.hap2), **kw),
+          "sharded": create_train_state(cfg, (first.hap1, first.hap2), mesh=mesh, **kw)}
+    steps = {"unsharded": make_train_step(), "sharded": make_train_step(mesh)}
+    losses = []
+    for i, b in enumerate(batches[:N_PAR_CHECK]):
+        out = {k: steps[k](st[k], b.hap1, b.hap2, b.n_variants) for k in st}
+        st = {k: v[0] for k, v in out.items()}
+        m_ref, m_par = out["unsharded"][1], out["sharded"][1]
+        check(all(torch.equal(m_ref[k], m_par[k]) for k in m_ref), f"step {i}: metrics differ")
+        check(_states_equal(st["unsharded"], st["sharded"]), f"step {i}: a parameter or slot differs")
+        losses.append(m_par["loss"].item())
+    timed = batches[N_PAR_CHECK:]
+
+    def runner(key):
+        def run(i):
+            b = timed[i % len(timed)]
+            st[key] = steps[key](st[key], b.hap1, b.hap2, b.n_variants)[0]
+        return run
+
+    ms = {"unsharded": [], "sharded": []}
+    for key in ("unsharded", "sharded", "sharded", "unsharded") * N_PAR_TURNS:
+        ms[key].append(step_times(runner(key), 3, N_PAR_TIMED)[0])
+    # then a profiler trace of each (after the timing: a session slows the
+    # launch path after it), on the same batches
+    traces = {}
+    for key in ("unsharded", "sharded"):
+        calls = iter(range(6))
+        text, traces[key] = trace_calls(lambda: runner(key)(next(calls)), 5,
+                                        f"{key} train step at world size 1", top=8)
+        log(f"[{card}] {text}")
+    check(_states_equal(st["unsharded"], st["sharded"]), "after the timed steps: states differ")
+    log(f"parallel train step at world size 1 (NCCL), HaploFormerConfig() B={BATCH} "
+        f"L={SEQ_LENGTH}: {N_PAR_CHECK} steps bit-equal to make_train_step() (losses "
+        f"{[round(x, 4) for x in losses]}; every parameter and AdamW slot), and again after "
+        f"{4 * N_PAR_TURNS * (3 + N_PAR_TIMED) + 12} timed and traced steps")
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"[{card}] train step at world size 1 (CUDA events, {N_PAR_TIMED} steps a run, in "
+        f"turns): sharded median {med['sharded']:.4f} ms (" + ", ".join(
+            f"{x:.4f}" for x in ms["sharded"]) + f"), unsharded median {med['unsharded']:.4f} "
+        "ms (" + ", ".join(f"{x:.4f}" for x in ms["unsharded"]) + ")")
+    del st, batches, timed
+
+    encode_windows_kernel.launches = 0
+    _, tos_losses = train_on_sampler(sampler, steps=N_PAR_TRAIN_ON, log_every=1, seed=seed,
+                                     mesh=mesh)
+    torch.cuda.synchronize()
+    launches = encode_windows_kernel.launches
+    check(launches == N_PAR_TRAIN_ON + 1, f"train_on_sampler(mesh): {launches} window launches")
+    check(all(map(math.isfinite, losses + tos_losses)), "a loss is not finite")
+    log(f"train_on_sampler(mesh=..., steps={N_PAR_TRAIN_ON}): losses "
+        f"{[round(x, 4) for x in tos_losses]}; window kernel launches {launches}")
+    return {"checked_steps": N_PAR_CHECK, "losses": losses, "ms_step_sharded": ms["sharded"],
+            "ms_step_unsharded": ms["unsharded"], "trace": traces,
+            "train_on_sampler_losses": tos_losses, "window_launches": launches}
+
+
+def parallel_decode(card: str, chr1: str, donor: str, mesh, dev) -> dict:
+    """``sharded_decode_frames`` on one donor's chr1 64-byte frames, with the
+    decode64 kernel's launches counted, against the unsharded kernel call and
+    the plain version on the same frames."""
+    frames = VCFSource(chr1, os.cpu_count()).frame(donor, "chr1").records
+    decode_frames_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec = sharded_decode_frames(frames, mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = decode_frames_kernel.launches
+    check(launches == 1, f"sharded_decode_frames: {launches} decode64 launches")
+    f64 = torch.from_numpy(frames).to(dev)
+    err = 0
+    for what, want in (("the unsharded kernel call", unpack64_decoded(*decode_frames_kernel(f64))),
+                       ("the plain version", decode_frames(f64))):
+        for name in dec._fields:
+            g, w = getattr(dec, name), getattr(want, name)
+            check(g.shape == w.shape == (frames.shape[0],), f"decode {name} shape")
+            d = int((g.long() - w.long()).abs().max())
+            err = max(err, d)
+            check(d == 0, f"sharded_decode_frames {name} differs from {what} (max |d| {d})")
+    log(f"[{card}] sharded_decode_frames on {frames.shape[0]:,} chr1 frames of {donor}: "
+        f"{secs:.4f} s (h2d and decode, host clock); decode64 launches {launches}; every "
+        "column bit-equal to the unsharded kernel call and to the plain version")
+    return {"records": frames.shape[0], "s": secs, "decode64_launches": launches,
+            "max_abs_err": err}
+
+
+def parallel_genome(card: str, genome, mesh, seed: int) -> dict:
+    """``ShardedGenome.from_codes`` of the deployment genome from the host
+    (halo L), and ``sharded_window_gather`` of B windows, one past the end."""
+    flat = genome.codes_flat
+    codes = flat.cpu().numpy()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sg = ShardedGenome.from_codes(codes, mesh, halo=SEQ_LENGTH)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    mem = (torch.cuda.memory_allocated() - mem0) / 2**30
+    total = codes.shape[0]
+    check(sg.chunk_local.shape == (sg.chunk + SEQ_LENGTH,) and torch.equal(sg.chunk_local[:total], flat)
+          and bool((sg.chunk_local[total:] == N_CODE).all()), "the shard's chunk and halo")
+    rng = np.random.default_rng(seed + 17)
+    starts = np.append(rng.integers(0, total - SEQ_LENGTH, BATCH - 1), sg.chunk + 5)
+    t0 = time.perf_counter()
+    win = sharded_window_gather(sg, starts, SEQ_LENGTH)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    gather_ms, gather_host_ms = step_times(
+        lambda i: sharded_window_gather(sg, starts, SEQ_LENGTH), 3, 20)
+    st = torch.from_numpy(starts[:-1]).to(flat.device)
+    want = flat[st[:, None] + torch.arange(SEQ_LENGTH, device=flat.device)]
+    check(win.shape == (BATCH, SEQ_LENGTH) and torch.equal(win[:-1], want), "windows differ")
+    check(not bool(win[-1].any()), "a start past the last shard must give zeros")
+    try:
+        sharded_window_gather(sg, starts, SEQ_LENGTH + 1)
+    except ValueError:
+        pass
+    else:
+        check(False, "a window past the halo was not refused")
+    log(f"[{card}] ShardedGenome.from_codes of {total:,} codes (host numpy, halo {SEQ_LENGTH}): "
+        f"{upload_s:.4f} s, {mem:.3f} GiB more on the card; sharded_window_gather of "
+        f"({BATCH}, {SEQ_LENGTH}) windows: the first call {first_ms:.3f} ms (host clock), then "
+        f"{gather_ms:.4f} ms a call (CUDA events, 20 calls), {gather_host_ms:.4f} ms (host "
+        "clock); equal to the codes' slices, zeros past the last shard, L > halo refused")
+    return {"codes": total, "upload_s": upload_s, "shard_gib": mem, "first_gather_ms": first_ms,
+            "gather_ms": gather_ms, "gather_host_ms": gather_host_ms}
+
+
+def parallel_convert(card: str, tmp: str, dev, mesh) -> dict:
+    """``convert_sharded(device_decode=True)`` on phase 14's chr22 file
+    against ``CohortTensors.from_structs`` of the single pass's structs
+    (``convert_chromosome``), with its file passes counted."""
+    cdir = os.path.join(tmp, "cohort")
+    path22 = os.path.join(cdir, "chr22.filtered.vcf.gz")
+    with open(os.path.join(cdir, "samples.txt")) as f:
+        donors = [line.strip() for line in f if line.strip()]
+    threads = os.cpu_count()
+    conv = VCFtoHDF5Converter("smoke22", cdir, os.path.join(cdir, "out_par"),
+                              os.path.join(cdir, "samples.txt"), cores=1, cxx_threads=threads,
+                              chromosomes=[22], device=dev)
+    structs, task_s, _ = collect_structs(conv, 22)
+    want = CohortTensors.from_structs({(d, "chr22"): s for d, s in structs.items()},
+                                      donors, ["chr22"])
+    # convert_sharded's stacking of the structs into (T, V) columns, alone
+    t0 = time.perf_counter()
+    _structs_to_task_tensors([structs[d] for d in donors], want.max_variants)
+    stack_s = time.perf_counter() - t0
+    del structs
+    hostio_vcf.FRAME_COUNTS.clear()
+    t0 = time.perf_counter()
+    got = convert_sharded({"chr22": path22}, donors, ["chr22"], mesh, threads=threads,
+                          host_workers=1, device_decode=True)
+    secs = time.perf_counter() - t0
+    check(secs <= PAR_CONVERT_LIMIT_S, f"convert_sharded took {secs:.1f} s: cut the donors")
+    passes = hostio_vcf.FRAME_COUNTS[path22]
+    check(passes == 1, f"convert_sharded framed the file {passes} times")
+    for k in ("pos", "ref_code", "alt_code", "phase1", "phase2", "counts"):
+        g, w = getattr(got, k), getattr(want, k)
+        check(g.dtype == w.dtype and g.shape == w.shape and g.tobytes() == w.tobytes(),
+              f"convert_sharded {k} differs from from_structs of the single pass")
+    log(f"[{card}] convert_sharded(device_decode=True) on chr22 x {len(donors)} donors: "
+        f"{secs:.3f} s, {passes} file pass; every column byte-equal to from_structs of "
+        f"convert_chromosome's structs ({task_s:.3f} s); V {got.pos.shape[2]:,}; its "
+        f"_structs_to_task_tensors alone on those structs {stack_s:.3f} s")
+    return {"donors": len(donors), "s": secs, "passes": passes,
+            "single_pass_task_s": task_s, "stack_s": stack_s}
+
+
+def parallel_phase(seed: int, tmp: str) -> dict:
+    """Phase 17 (``--parallel DIR``, in a process of its own; ``DIR`` holds
+    phase 7's and phase 14's files): NCCL with one rank through
+    ``make_mesh(MeshConfig(1, 1))`` on the deployment state of ``--seed``."""
+    t_phase = time.perf_counter()
+    dev, card = torch.device("cuda"), card_line()
+    mesh = make_mesh(MeshConfig(1, 1))
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "an NCCL group of one")
+    genome, cohort, regions = make_state(seed, dev)
+    sampler = DeviceHaplotypeSampler(genome, cohort, regions,
+                                     SamplerConfig(seq_length=SEQ_LENGTH, batch_size=BATCH))
+    out = {"card": card, "backend": dist.get_backend(), "world_size": dist.get_world_size()}
+    out["train"] = parallel_train(card, seed, sampler, mesh)
+    with open(os.path.join(tmp, "samples.txt")) as f:
+        donor = f.readline().strip()
+    out["decode"] = parallel_decode(card, os.path.join(tmp, "chr1.filtered.vcf.gz"), donor,
+                                    mesh, dev)
+    out["genome"] = parallel_genome(card, genome, mesh, seed)
+    counts = cohort.counts
+    check(torch.equal(all_gather_cohort(counts, mesh), counts), "all_gather_cohort of the counts")
+    total = psum_counts(counts, mesh)
+    check(total.shape == (1,) and int(total) == int(counts.sum()), "psum_counts of the counts")
+    log(f"all_gather_cohort and psum_counts on the cohort's {tuple(counts.shape)} counts: "
+        f"equal to the counts and to their sum ({int(total):,})")
+    del sampler, genome, cohort
+    torch.cuda.empty_cache()
+    out["convert"] = parallel_convert(card, tmp, dev, mesh)
+    dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"parallel phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def run_parallel(seed: int, tmp: str) -> dict:
+    """``parallel_phase`` in a child process; its log lines are relayed."""
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--parallel", tmp, "--seed", str(seed)],
+        capture_output=True, text=True, timeout=600,
+    )
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        log(line)
+    check(proc.returncode == 0 and lines,
+          f"--parallel exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2259,6 +2546,10 @@ def main() -> int:
     ap.add_argument("--train-times", action="store_true",
                     help="time phase 13's training path alone and print the times as "
                          "one JSON line (phase 13 runs this in a process of its own)")
+    ap.add_argument("--parallel", metavar="DIR",
+                    help="run phase 17 alone on the files phases 7 and 14 wrote under DIR and "
+                         "print its numbers as one JSON line (phase 17 runs this in a process "
+                         "of its own)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2266,6 +2557,9 @@ def main() -> int:
         return 2
     if args.train_times:
         print(json.dumps(train_times(args.seed)), flush=True)
+        return 0
+    if args.parallel:
+        print(json.dumps(parallel_phase(args.seed, args.parallel)), flush=True)
         return 0
     dev = torch.device("cuda")
     cmp = Comparisons()
@@ -2443,6 +2737,10 @@ def main() -> int:
         # -- 16. the tokenizer route and the host I/O surface ---------------
         torch.cuda.empty_cache()
         log(json.dumps({"tokenizer": tokenizer_phase(card, tmp, dev, ctx)}))
+
+        # -- 17. the parallel path at world size 1 ---------------------------
+        parallel = run_parallel(args.seed, tmp)
+        log(json.dumps({"parallel": parallel}))
     finally:
         conv_dir.cleanup()
 
@@ -2451,7 +2749,7 @@ def main() -> int:
         "route": "cuda",
         "source": "haplohyped_tpu_torch/csrc/window_kernel.cu",
         "replaces": "haplohyped_tpu/ops/pallas_window.py:178",
-        "launches": main_launches + ref_launches,
+        "launches": main_launches + ref_launches + parallel["train"]["window_launches"],
         "max_abs_err": cmp.max_abs_err,
         "ms": ms_kernel,
         "plain_ms": ms_plain,
@@ -2466,7 +2764,8 @@ def main() -> int:
             "route": "cuda",
             "source": "haplohyped_tpu_torch/csrc/vcf_decode.cu",
             "replaces": f"haplohyped_tpu/ops/pallas_decode.py:{line}",
-            "launches": ctx["launches"][name],
+            "launches": ctx["launches"][name] + (parallel["decode"]["decode64_launches"]
+                                                 if name == "vcf_decode64" else 0),
             "max_abs_err": dec.max_abs_err[name],
             "ms": ms,
             "plain_ms": plain_ms,

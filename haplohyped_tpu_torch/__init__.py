@@ -11,14 +11,17 @@ single pass, every donor of a chromosome from one framing decoded by torch
 ops, and the per-donor path, its record decode on two more Hopper
 kernels), the FASTA -> reference-HDF5 encoder (``pipeline.fasta_encoder``:
 the one-hot as torch ops) with its FASTA readers and faidx index, the genome
-codecs (``ops.pack``), the host ``data.RandomHaplotypeDataset``, and an
-argparse CLI with a doctor (``pipeline.main``).  It imports torch and numpy (h5py and libblosc only where
+codecs (``ops.pack``), the host ``data.RandomHaplotypeDataset``, an
+argparse CLI with a doctor (``pipeline.main``), and the parallel layer on
+``torch.distributed`` (``parallel``: a ``('data', 'model')`` process mesh
+with its parameter rules, collectives, a position-sharded genome, the
+sharded converter and multi-process set-up; the train step's ``mesh=``).  It imports torch and numpy (h5py and libblosc only where
 an HDF5 file is read or written), and nothing of JAX or ``haplohyped_tpu``.
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.
 """
 
-from haplohyped_tpu_torch.core.config import SamplerConfig
+from haplohyped_tpu_torch.core.config import MeshConfig, SamplerConfig
 from haplohyped_tpu_torch.data.cohort import CohortTensors
 from haplohyped_tpu_torch.data.genome import GenomeTensors
 from haplohyped_tpu_torch.data.regions import load_bed_regions
@@ -34,6 +37,7 @@ __all__ = [
     "HaploFormer",
     "HaploFormerConfig",
     "HaplotypeBatch",
+    "MeshConfig",
     "SamplerConfig",
     "load_bed_regions",
     "train_on_sampler",

@@ -1,4 +1,4 @@
-"""Sampler, converter and FASTA-encoder configuration, and device resolution."""
+"""Sampler, converter, FASTA-encoder and mesh configuration, and device resolution."""
 
 from __future__ import annotations
 
@@ -26,6 +26,24 @@ _NOT_PORTED = {
     "for TPU gather cost and is not ported; use window_kernel='kernel' (the "
     "Hopper kernel) or 'baseline' (the plain PyTorch version)",
 }
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Process mesh layout for sharded conversion and training.
+
+    Axis semantics:
+      - ``data``:  batch / donor-shard data parallelism
+      - ``model``: tensor parallelism of the flagship model
+    """
+
+    data: int = 1
+    model: int = 1
+    axis_names: tuple[str, str] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model
 
 
 @dataclass(frozen=True)

@@ -7,12 +7,15 @@ pass), optionally restricted to a region (``chrom`` or ``chrom:beg-end``).
 A v2 framing of a region that a sibling ``.tbi``/``.csi`` indexes inflates
 only the BGZF blocks that cover it.  The native framer is built from
 ``cpp/`` at first use and a failed build raises; the pure-Python framer
-runs only when the caller passes ``use_native=False``.
+runs only when the caller passes ``use_native=False``.  ``FRAME_COUNTS``
+counts the framing passes of each file.
 """
 
 from __future__ import annotations
 
 import gzip
+import threading
+from collections import Counter
 
 import numpy as np
 
@@ -26,6 +29,18 @@ from haplohyped_tpu_torch.hostio.frame_format import (
     pack_frame,
 )
 from haplohyped_tpu_torch.hostio.tabix import region_block_range
+
+#: framing passes by file path: each ``frame``, ``frame12`` and ``frame_v2``
+#: call reads the file once (an indexed region read inflates only the
+#: blocks that cover it, and still counts one).  The tests count a sharded
+#: conversion's passes through it: one a (chromosome, shard), not one a donor.
+FRAME_COUNTS: Counter = Counter()
+_frame_counts_lock = threading.Lock()  # converters frame from worker threads
+
+
+def _count_pass(path: str) -> None:
+    with _frame_counts_lock:
+        FRAME_COUNTS[path] += 1
 
 
 def _read_text(path: str) -> bytes:
@@ -87,6 +102,7 @@ class VCFSource:
 
         ``sample`` selects whose GT subfield is packed; ``region`` filters by
         chromosome (optionally ``chrom:beg-end``, 1-based inclusive)."""
+        _count_pass(self.path)
         if self.use_native:
             records, seen = native.vcf_frame(self.path, sample, region, self.threads)
             return FramedRecords(records=records, total_seen=seen)
@@ -100,6 +116,7 @@ class VCFSource:
         Returns (records, chrom_table, total_seen).  Raises ``ValueError``
         where the records ``region`` keeps hold > 255 distinct chroms (route
         those through :meth:`frame`)."""
+        _count_pass(self.path)
         if self.use_native:
             return native.vcf_frame12(self.path, sample, region, self.threads)
         framed = self._py_frame(sample, region)
@@ -122,6 +139,7 @@ class VCFSource:
         ``use_index`` is on, only the BGZF blocks covering it are inflated
         (``FrameV2.blocks_decoded`` says how many).  Raises ``ValueError``
         where the records kept hold > 255 distinct chroms."""
+        _count_pass(self.path)
         c_lo, u_skip, c_hi = -1, 0, -1
         if use_index and region:
             chrom, beg, end = _parse_region(region)

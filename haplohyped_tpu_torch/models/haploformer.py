@@ -20,6 +20,13 @@ float32 parameters, cast where flax casts them (inside each conv, dense and
 layer norm, the position embedding, the outputs); no ``torch.autocast``.
 No op here is a hand-written kernel: the JAX package leaves this model to
 XLA, and the port leaves it to PyTorch's ops.
+
+Tensor parallelism over a mesh's ``model`` axis
+(``parallel.mesh.shard_model``) cuts the attention heads and the MLP hidden
+dimension: each ``Attention`` and ``Block`` then enters its sharded region
+through ``copy_to_group`` and leaves it through ``reduce_over_group``, with
+the output projections' biases added once after the sum.  Unsharded, they
+compute what they compute without it.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from torch import nn
 
 from haplohyped_tpu_torch.core.config import resolve_device
 from haplohyped_tpu_torch.ops.haplotype_window import windows_to_onehot
+from haplohyped_tpu_torch.parallel.collectives import copy_to_group, reduce_over_group
 
 #: flax ``nn.LayerNorm``'s epsilon (torch's default is 1e-5)
 LN_EPS = 1e-6
@@ -83,11 +91,24 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.kernel = nn.Parameter(_lecun_normal((*in_shape, *out_shape), math.prod(in_shape), g))
         self.bias = nn.Parameter(torch.zeros(out_shape))
+        #: tensor parallelism over ``tp_group`` (set by ``Attention``/``Block``
+        #: ``.tensor_parallel``): a column-sharded projection adds ``bias_rows``
+        #: of its full bias, whose gradient the group sums; a row-sharded one
+        #: sums its partial products over the group, then adds its bias once
+        self.tp_group = None
+        self.bias_rows: slice | None = None
+        self.row_parallel = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         w = self.kernel.reshape(x.shape[-1], -1).to(dt)
-        return F.linear(x.to(dt), w.t(), self.bias.reshape(-1).to(dt))
+        b = self.bias
+        if self.bias_rows is not None:
+            b = copy_to_group(b, self.tp_group)[self.bias_rows]
+        b = b.reshape(-1).to(dt)
+        if self.row_parallel:
+            return reduce_over_group(F.linear(x.to(dt), w.t()), self.tp_group) + b
+        return F.linear(x.to(dt), w.t(), b)
 
 
 class Conv(nn.Module):
@@ -139,9 +160,26 @@ class Attention(nn.Module):
         self.value = Dense((d,), (heads, self.head_dim), dtype, g)
         self.out = Dense((heads, self.head_dim), (d,), dtype, g)
         self.q_divisor = float(torch.tensor(math.sqrt(self.head_dim)).to(dtype))
+        self.tp_group = None
+
+    def tensor_parallel(self, rank: int, size: int, group) -> None:
+        """Compute this rank's ``heads // size`` heads, the kernels being cut
+        to them already (``parallel.mesh.shard_model``): q/k/v add their
+        heads' rows of the full (replicated) biases, and the output
+        projection sums its partial products over ``group``."""
+        if self.heads % size:
+            raise ValueError(f"{self.heads} heads do not divide over {size} model ranks")
+        h = self.heads // size
+        self.heads = h
+        for proj in (self.query, self.key, self.value):
+            proj.tp_group, proj.bias_rows = group, slice(rank * h, (rank + 1) * h)
+        self.out.tp_group, self.out.row_parallel = group, True
+        self.tp_group = group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, d)
         B, T, _ = x.shape
+        if self.tp_group is not None:
+            x = copy_to_group(x, self.tp_group)
 
         def heads(t):  # (B, T, h * hd) -> (B, h, T, hd)
             return t.view(B, T, self.heads, self.head_dim).transpose(1, 2)
@@ -163,10 +201,21 @@ class Block(nn.Module):
         self.ln2 = LayerNorm(d, dt)
         self.mlp_in = Dense((d,), (d * cfg.mlp_ratio,), dt, g)
         self.mlp_out = Dense((d * cfg.mlp_ratio,), (d,), dt, g)
+        self.tp_group = None
+
+    def tensor_parallel(self, rank: int, size: int, group) -> None:
+        """The MLP on this rank's slice of the hidden dim (``mlp_in``'s kernel
+        and bias and ``mlp_out``'s kernel cut already): ``mlp_out`` sums its
+        partial products over ``group``.  The attention is its own module."""
+        self.mlp_out.tp_group, self.mlp_out.row_parallel = group, True
+        self.tp_group = group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
-        return x + self.mlp_out(_gelu(self.mlp_in(self.ln2(x))))
+        h = self.ln2(x)
+        if self.tp_group is not None:
+            h = copy_to_group(h, self.tp_group)
+        return x + self.mlp_out(_gelu(self.mlp_in(h)))
 
 
 class ConvStem(nn.Module):

@@ -23,7 +23,8 @@ The port of ``haplohyped_tpu.ops.vcf_decode``:
   They are those kernels' plain versions: the tests and ``chip_smoke.py``
   hold each kernel bit-equal to them.
 - numpy helpers: :func:`unpack12_columns` and :func:`unpack64_columns` turn
-  the wire formats back into the decode dict on the host;
+  the wire formats back into the decode dict on the host
+  (:func:`unpack64_decoded` is the 64-byte one on the device);
   :func:`decode_frames12_numpy`, :func:`decode_frames_numpy` and
   :func:`decode_frames_v2_numpy` are the JAX package's numpy twins (the
   converter's ``device_decode=False`` path); :func:`pad_v2_sides` pads a v2
@@ -495,6 +496,35 @@ def unpack64_columns(
         "snp_mask": (flags & 1) != 0,
         "valid": (flags & 2) != 0,
     }
+
+
+def unpack64_decoded(
+    start: torch.Tensor,
+    stop: torch.Tensor,
+    ref_char: torch.Tensor,
+    alt_char: torch.Tensor,
+    phase1: torch.Tensor,
+    phase2: torch.Tensor,
+    flags: torch.Tensor,
+) -> DecodedVariants:
+    """:func:`unpack64_columns` on the device: the 64-byte decode's seven
+    int32 columns as the :class:`DecodedVariants` that :func:`decode_frames`
+    returns for the same frames."""
+    ref_char, alt_char = ref_char.to(torch.uint8), alt_char.to(torch.uint8)
+    return DecodedVariants(
+        start=start.long() & _MASK32,
+        stop=stop.long() & _MASK32,
+        ref_char=ref_char,
+        alt_char=alt_char,
+        ref_code=ascii_to_codes(ref_char),
+        alt_code=ascii_to_codes(alt_char),
+        phase1=phase1.to(torch.int8),
+        phase2=phase2.to(torch.int8),
+        phased=(flags & 8) != 0,
+        missing=(flags & 4) != 0,
+        snp_mask=(flags & 1) != 0,
+        valid=(flags & 2) != 0,
+    )
 
 
 def decode_frames12_numpy(

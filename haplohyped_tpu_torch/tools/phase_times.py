@@ -8,8 +8,10 @@ compared on one card in turns (parent, change, change, parent):
 ``single_pass`` runs phases 7-8 (the converter's input, its per-donor path)
 then phase 14 (the single-pass converter); ``tokenizer`` runs those, then
 phase 16 (the tokenizer route and the host I/O surface); ``reference`` runs
-phase 15 (the reference path).  The tree's own package and kernels are used (built into
-its ``_build/``).  Needs a CUDA card.
+phase 15 (the reference path); ``parallel`` writes phase 7's chr1 file and
+phase 14's chr22 cohort file, then runs phase 17 (the parallel path at world
+size 1, NCCL, in a process of its own).  The tree's own package and kernels
+are used (built into its ``_build/``).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import time
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("single_pass", "tokenizer", "reference"), required=True)
+    ap.add_argument("--phase", choices=("single_pass", "tokenizer", "reference", "parallel"), required=True)
     ap.add_argument("--tag", required=True, help="the tree's name in the output")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the JSON object to this file")
@@ -52,8 +54,14 @@ def main(argv=None) -> int:
             if args.phase == "tokenizer":
                 torch.cuda.empty_cache()
                 out["tokenizer"] = cs.tokenizer_phase(card, tmp, dev, ctx)
-        else:
+        elif args.phase == "reference":
             out["reference"] = cs.reference_phase(card, tmp, args.seed, dev, cs.Comparisons())[0]
+        else:
+            t0 = time.perf_counter()
+            cs.make_converter_input(tmp, args.seed)
+            cs.cohort_input(tmp, args.seed)
+            out["inputs_s"] = time.perf_counter() - t0
+            out["parallel"] = cs.run_parallel(args.seed, tmp)
     line = json.dumps(out)
     if args.out:
         with open(args.out, "w") as f:

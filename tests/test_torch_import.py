@@ -50,7 +50,9 @@ def test_importing_every_module_leaves_jax_out():
                  "utils.malloc_tune", "hostio.fai", "hostio.fasta", "ops.onehot", "ops.pack",
                  "data.haplotype_dataset", "pipeline.fasta_encoder", "pipeline.doctor",
                  "pipeline.main", "ops.vcf_tokenize", "ops.vcf_stream", "hostio.bgzf",
-                 "hostio.writer", "hostio.variants", "parse_vcf", "version"):
+                 "hostio.writer", "hostio.variants", "parse_vcf", "version", "parallel",
+                 "parallel.distributed", "parallel.mesh", "parallel.collectives",
+                 "parallel.genome_shard", "parallel.sharded_convert"):
         assert f"haplohyped_tpu_torch.{name}" in res["imported"]
     bad = [m for m in res["modules"] if _forbidden(m)]
     assert bad == []
