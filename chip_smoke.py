@@ -164,11 +164,30 @@ Phases (any failure exits non-zero; nothing is caught):
    one file pass, every column byte-equal to ``CohortTensors.from_structs``
    of the single pass's structs.
 
+18. ``DeviceHaplotypeSampler.sample_chain`` on the phase-3 sampler, one CUDA
+   graph of window-kernel links: ``chain_run(3, 4, key=k)`` on the graph
+   equal to the same chain run eagerly through the plain version (the
+   digest, each link's seed, the last link's windows bit-equal); five calls
+   with the window kernel's launch count set to 0 just before and read just
+   after (3 launches a call, counted a replay) under CUDA's sync debug mode
+   raising on any host round-trip; two key-less calls give two digests and
+   advance the step, two calls of one key one digest; the chain's draws on
+   the card equal to the CPU's; ``emit_onehot`` at (2, 2) on a sampler of
+   its own, graph against eager.  Times: ``sample_chain(16, 256)`` (the JAX
+   bench's chain) a call with its digest fetch (median of 12, host clock)
+   and device-resident windows/s, in turns with ``sample_many(16)``; its
+   device ms a call and a link (CUDA events); the window kernel at a link's
+   B = 16,384 (CUDA events) beside its bound.  At that timed shape too, the
+   graph's ``chain_run(16, 256, key=k)`` equal to the eager plain chain
+   (digest, seeds, the last link's 16,384 windows) and two of the timed
+   B = 16,384 launches bit-equal to the plain version.
+
 The lines before the last are a JSON object ``{"train": {...}}`` of phase
 13's numbers, one ``{"single_pass": {...}}`` of phase 14's, one
 ``{"reference": {...}}`` of phase 15's, one ``{"tokenizer": {...}}`` of
-phase 16's, one ``{"parallel": {...}}`` of phase 17's, then one with one
-entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
+phase 16's, one ``{"parallel": {...}}`` of phase 17's, one ``{"chain":
+{...}}`` of phase 18's, then one with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -206,6 +225,7 @@ from haplohyped_tpu_torch.core.timing import (
     device_ms,
 )
 from haplohyped_tpu_torch.data.cohort import CohortTensors
+from haplohyped_tpu_torch.data.sampler import HaplotypeBatch, chain_digest
 from haplohyped_tpu_torch.hostio import native
 from haplohyped_tpu_torch.hostio import vcf as hostio_vcf
 from haplohyped_tpu_torch.hostio.bcf import bcf_decoded_columns, is_bcf
@@ -2539,6 +2559,164 @@ def run_parallel(seed: int, tmp: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 18: sample_chain, one CUDA graph over the window kernel
+# ---------------------------------------------------------------------------
+
+#: the chain checked against the eager plain chain; the one-hot chain; the
+#: JAX bench's timed chain (bench.py:1256); timed calls of it and of
+#: sample_many(16), in turns; batches of B=16,384 timed for the kernel alone
+CHAIN_CHECK, CHAIN_ONEHOT, CHAIN_TIMED = (3, 4), (2, 2), (16, 256)
+N_CHAIN_CALLS, N_LINK_BATCHES, N_LINK_CHECKED = 12, 8, 2
+
+
+def host_digest(batch) -> int:
+    """The JAX package's chain digest of a batch, computed in numpy on the
+    host (``chain_digest``'s yardstick on the card)."""
+    leaves = {name: getattr(batch, name).cpu().numpy().astype(np.int64)
+              for name in HaplotypeBatch._fields}
+    d = (int(leaves["hap1_codes"].sum()) & 1) ^ ((int(leaves["hap2_codes"].sum()) & 1) << 1)
+    d ^= int(leaves["n_variants"].sum()) & 0xFFFFFFFF
+    if leaves["hap1"].ndim > leaves["hap1_codes"].ndim:
+        d ^= ((int(leaves["hap1"].sum()) & 1) << 2) ^ ((int(leaves["hap2"].sum()) & 1) << 3)
+    return d
+
+
+def chain_phase(card: str, seed: int, genome, cohort, regions, sampler,
+                cmp: Comparisons) -> tuple[dict, int]:
+    """Phase 18 on the phase-3 sampler.  Returns its numbers and the window
+    kernel's launches on the chain's own run."""
+    t_phase = time.perf_counter()
+    out: dict = {"card": card}
+    key = seed + 18
+    n_chain, n_batches = CHAIN_CHECK
+    want = sampler.chain_run(n_chain, n_batches, key=key, kernel="baseline")
+    t0 = time.perf_counter()
+    sampler.sample_chain(n_chain, n_batches, key=key)  # warm-up and capture
+    torch.cuda.synchronize()
+    out["capture_s"] = time.perf_counter() - t0
+
+    # the chain's run: every launch counted, no host round-trip before the fetch
+    step0 = sampler._step
+    encode_windows_kernel.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    got = sampler.chain_run(n_chain, n_batches, key=key)
+    keyless = [sampler.sample_chain(n_chain, n_batches) for _ in range(2)]
+    same = [sampler.sample_chain(n_chain, n_batches, key=key + 1) for _ in range(2)]
+    torch.cuda.set_sync_debug_mode(0)
+    launches = encode_windows_kernel.launches
+    check(launches == 5 * n_chain, f"5 chains of {n_chain} links launched the window kernel "
+                                   f"{launches} times")
+    check(int(got.digest) == int(want.digest),
+          f"chain digest {int(got.digest)} differs from the eager plain chain's {int(want.digest)}")
+    check(torch.equal(got.seeds, want.seeds), "a link's seed differs from the eager plain chain's")
+    flat = HaplotypeWindows(*(t.reshape(-1, *t.shape[2:]) for t in got.last[2:]))
+    cmp.windows(flat, HaplotypeWindows(*(t.reshape(-1, *t.shape[2:]) for t in want.last[2:])),
+                f"sample_chain{CHAIN_CHECK} last link")
+    check(int(chain_digest(got.last)) == host_digest(got.last),
+          "chain_digest on the card differs from the host's digest of the same windows")
+    check(sampler._step == step0 + 2 * n_chain * n_batches, "a key-less chain kept the step")
+    check(int(keyless[0]) != int(keyless[1]), "two key-less chains gave one digest")
+    check(int(same[0]) == int(same[1]), "two chains of one key gave two digests")
+    s = torch.tensor([-0x61C8864680B583EB * (seed + 1)])  # a negative int64 seed
+    on_card = sampler.chain_draws(s.to(sampler.device), CHAIN_TIMED[1])
+    on_cpu = sampler.chain_draws(s, CHAIN_TIMED[1])
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)),
+          "the chain's draws on the card differ from the CPU's")
+    out |= {"digest": int(got.digest), "launches": launches,
+            "draws_checked": sum(t.numel() for t in on_cpu)}
+
+    # the one-hot chain, on a sampler of its own over the same state
+    onehot = DeviceHaplotypeSampler(genome, cohort, regions, sampler.config, emit_onehot=True)
+    a = onehot.chain_run(*CHAIN_ONEHOT, key=key, kernel="baseline")
+    b = onehot.chain_run(*CHAIN_ONEHOT, key=key)
+    b = onehot.chain_run(*CHAIN_ONEHOT, key=key)  # a replay of the cached graph
+    check(int(a.digest) == int(b.digest) and torch.equal(a.seeds, b.seeds),
+          "emit_onehot: the graph's chain differs from the eager plain chain")
+    check(torch.equal(a.last.hap1, b.last.hap1), "emit_onehot: one-hot windows differ")
+    check(int(chain_digest(b.last)) == host_digest(b.last),
+          "emit_onehot: chain_digest on the card differs from the host's")
+    del onehot, a, b
+    log(f"chain checks: sample_chain{CHAIN_CHECK} bit-equal to the eager plain chain (digest "
+        f"{out['digest']}, {n_chain} seeds, the last link's {n_batches * BATCH} windows), "
+        f"{launches} launches for 5 calls under sync debug mode 'error'; key-less calls "
+        f"advance the step; {out['draws_checked']:,} draws equal to the CPU's; "
+        f"emit_onehot {CHAIN_ONEHOT} equal; first call (warm-up, capture) {out['capture_s']:.3f} s")
+
+    # times: the chain with its digest fetch, in turns with sample_many(16)
+    n_chain, n_batches = CHAIN_TIMED
+    t0 = time.perf_counter()
+    int(sampler.sample_chain(n_chain, n_batches, key=key))
+    out["timed_capture_s"] = time.perf_counter() - t0
+    chain_s, many_s = [], []
+    for i in range(N_CHAIN_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        int(sampler.sample_chain(n_chain, n_batches, key=key + 100 + i))  # the fetch attests
+        chain_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        sampler.sample_many(16)
+        torch.cuda.synchronize()
+        many_s.append(time.perf_counter() - t0)
+    windows = n_chain * n_batches * BATCH
+    med_chain, med_many = float(np.median(chain_s)), float(np.median(many_s))
+    ev, _ = device_ms(lambda k: sampler.sample_chain(n_chain, n_batches, key=k),
+                      [(key + 200 + i,) for i in range(4)])
+    out |= {"n_chain": n_chain, "n_batches": n_batches, "B": BATCH, "L": SEQ_LENGTH,
+            "chain_call_s": med_chain, "chain_windows_per_s": windows / med_chain,
+            "sample_many16_s": med_many, "sample_many16_windows_per_s": 16 * BATCH / med_many,
+            "chain_device_ms": ev, "link_device_ms": ev / n_chain}
+
+    # where a link's time goes: one link run eagerly, traced
+    seed_t = torch.tensor([key], device=sampler.device)
+    trace, stats = trace_calls(lambda: sampler._chain_links(seed_t, 1, n_batches, "kernel"), 5,
+                               f"one eager link of sample_chain{CHAIN_TIMED}", top=8)
+    log(f"[{card}] {trace}")
+    out |= {"link_eager_busy_ms": stats["busy_ms"], "link_eager_device_ops": stats["ops"]}
+
+    # the kernel alone at a link's shape, B = n_batches * 64, on chain draws
+    batches = []
+    for i in range(N_LINK_BATCHES):
+        r, d, c = sampler.chain_draws(torch.tensor([key + 300 + i], device=sampler.device),
+                                      n_batches)
+        batches.append((d, c, sampler.window_starts(r, c)))
+    kern = functools.partial(encode_windows_kernel, sampler.index, L=SEQ_LENGTH, K=K_MAX)
+    ev_kernel, _ = device_ms(kern, batches)
+    outs = [kern(*x) for x in batches]
+    slices = [window_slice(sampler.index, *x, SEQ_LENGTH) for x in batches]
+    bound = lab.bound_ms("prod", slices, [o.n_variants.clamp(max=K_MAX) for o in outs], SEQ_LENGTH)
+    out |= {"link_B": n_batches * BATCH, "link_kernel_ms": ev_kernel, "link_kernel_bound_ms": bound}
+
+    # the kernel at the timed shape against the plain version: the graph's chain
+    # and two of the timed launches
+    want = sampler.chain_run(n_chain, n_batches, key=key, kernel="baseline")
+    got = sampler.chain_run(n_chain, n_batches, key=key)
+    check(int(got.digest) == int(want.digest) and torch.equal(got.seeds, want.seeds),
+          f"sample_chain{CHAIN_TIMED}: the graph's chain differs from the eager plain chain")
+    flat = HaplotypeWindows(*(t.reshape(-1, *t.shape[2:]) for t in got.last[2:]))
+    cmp.windows(flat, HaplotypeWindows(*(t.reshape(-1, *t.shape[2:]) for t in want.last[2:])),
+                f"sample_chain{CHAIN_TIMED} last link")
+    for i in range(N_LINK_CHECKED):
+        cmp.windows(outs[i], encode_haplotype_windows(*sampler.index.plain_args, *batches[i],
+                                                      L=SEQ_LENGTH, K=K_MAX),
+                    f"window kernel at B={n_batches * BATCH}, batch {i}")
+    out["timed_shape_checked"] = {"digest": int(got.digest), "links": n_chain,
+                                  "windows": flat.hap1.shape[0], "kernel_batches": N_LINK_CHECKED}
+    del want, got, flat
+    log(f"[{card}] sample_chain{CHAIN_TIMED}: {med_chain * 1e3:.4f} ms a call with its digest "
+        f"fetch (median of {N_CHAIN_CALLS}, host clock) = {windows / med_chain:,.0f} "
+        f"device-resident windows/s; {ev:.4f} ms device a call, {ev / n_chain:.5f} ms a link "
+        f"(CUDA events); in turns, sample_many(16) {med_many * 1e3:.4f} ms = "
+        f"{16 * BATCH / med_many:,.0f} windows/s; the window kernel at B={n_batches * BATCH}: "
+        f"{ev_kernel:.5f} ms a launch (CUDA events), bound {bound:.5f} ms (bytes, 3.35 TB/s); "
+        f"at this shape the graph's chain equal to the eager plain chain (digest "
+        f"{out['timed_shape_checked']['digest']}, {n_chain} seeds, the last link's "
+        f"{n_batches * BATCH} windows) and {N_LINK_CHECKED} launches equal to the plain version")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"chain phase: {out['phase_s']:.1f} s")
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2744,12 +2922,18 @@ def main() -> int:
     finally:
         conv_dir.cleanup()
 
+    # -- 18. sample_chain: one CUDA graph over the window kernel ------------
+    torch.cuda.empty_cache()
+    chain, chain_launches = chain_phase(card, args.seed, genome, cohort, regions, sampler, cmp)
+    log(json.dumps({"chain": chain}))
+
     kernels = [{
         "name": "window_kernel",
         "route": "cuda",
         "source": "haplohyped_tpu_torch/csrc/window_kernel.cu",
         "replaces": "haplohyped_tpu/ops/pallas_window.py:178",
-        "launches": main_launches + ref_launches + parallel["train"]["window_launches"],
+        "launches": (main_launches + ref_launches + parallel["train"]["window_launches"]
+                     + chain_launches),
         "max_abs_err": cmp.max_abs_err,
         "ms": ms_kernel,
         "plain_ms": ms_plain,

@@ -26,6 +26,11 @@ for _i, _b in enumerate(DEFAULT_ENCODE_LIST):
     BASE_LUT[ord(_b)] = _i
     BASE_LUT[ord(_b.lower())] = _i
 
+#: Inverse: code -> uppercase ASCII byte.
+CODE_TO_ASCII: np.ndarray = np.frombuffer(
+    "".join(DEFAULT_ENCODE_LIST).encode(), dtype=np.uint8
+).copy()
+
 #: Structured dtype of one SNP record in a cohort HDF5 (``snp_data``).
 SNP_STRUCT_DTYPE = np.dtype(
     [
@@ -49,6 +54,9 @@ COHORT_COMPRESSION_OPTS: tuple[int, ...] = (2, 2, 0, 0, 5, 1, 2)
 
 #: cd_values of the per-chromosome reference writer (filter version 0).
 REFERENCE_COMPRESSION_OPTS: tuple[int, ...] = (0, 2, 0, 0, 5, 1, 2)
+
+#: Blosc compcode -> compressor name (c-blosc convention).
+BLOSC_COMPCODE_NAMES: tuple[str, ...] = ("blosclz", "lz4", "lz4hc", "snappy", "zlib", "zstd")
 
 #: Autosomes a conversion processes by default.
 AUTOSOMES: tuple[int, ...] = tuple(range(1, 23))

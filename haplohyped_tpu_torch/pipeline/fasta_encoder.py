@@ -147,9 +147,10 @@ class HDF5Handler:
     """Merge per-chromosome temp files into one reference HDF5."""
 
     @staticmethod
-    def merge_h5_files(tmp_dir: str, final_h5_file: str) -> None:
+    def merge_h5_files(tmp_dir: str, final_h5_file: str, cores: int | None = None) -> None:
         """Copy every ``{chrom}.h5`` of ``tmp_dir`` into ``{chrom}/`` of
-        ``final_h5_file`` (the h5py copy keeps each dataset's filters)."""
+        ``final_h5_file`` (the h5py copy keeps each dataset's filters).
+        ``cores`` is taken, and ignored, as the JAX package does."""
         import h5py
 
         logger.info("Merging HDF5 files from %s to %s", tmp_dir, final_h5_file)

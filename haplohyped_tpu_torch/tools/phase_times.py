@@ -10,7 +10,9 @@ then phase 14 (the single-pass converter); ``tokenizer`` runs those, then
 phase 16 (the tokenizer route and the host I/O surface); ``reference`` runs
 phase 15 (the reference path); ``parallel`` writes phase 7's chr1 file and
 phase 14's chr22 cohort file, then runs phase 17 (the parallel path at world
-size 1, NCCL, in a process of its own).  The tree's own package and kernels
+size 1, NCCL, in a process of its own); ``chain`` makes the deployment state
+and phase 3's sampler, then runs phase 18 (``sample_chain``, one CUDA graph
+over the window kernel).  The tree's own package and kernels
 are used (built into its ``_build/``).  Needs a CUDA card.
 """
 
@@ -26,7 +28,8 @@ import time
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("single_pass", "tokenizer", "reference", "parallel"), required=True)
+    ap.add_argument("--phase", required=True,
+                    choices=("single_pass", "tokenizer", "reference", "parallel", "chain"))
     ap.add_argument("--tag", required=True, help="the tree's name in the output")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the JSON object to this file")
@@ -54,6 +57,12 @@ def main(argv=None) -> int:
             if args.phase == "tokenizer":
                 torch.cuda.empty_cache()
                 out["tokenizer"] = cs.tokenizer_phase(card, tmp, dev, ctx)
+        elif args.phase == "chain":
+            genome, cohort, regions = cs.make_state(args.seed, dev)
+            cfg = cs.SamplerConfig(seq_length=cs.SEQ_LENGTH, batch_size=cs.BATCH)
+            sampler = cs.DeviceHaplotypeSampler(genome, cohort, regions, cfg)
+            out["chain"] = cs.chain_phase(card, args.seed, genome, cohort, regions, sampler,
+                                          cs.Comparisons())[0]
         elif args.phase == "reference":
             out["reference"] = cs.reference_phase(card, tmp, args.seed, dev, cs.Comparisons())[0]
         else:
