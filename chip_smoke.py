@@ -13,10 +13,15 @@ Phases (any failure exits non-zero; nothing is caught):
    SNVs at ~1.2 per kb per chromosome, and 100,000 BED regions of 200-2,000 bp.
 3. The main path: ``DeviceHaplotypeSampler`` with ``SamplerConfig(seq_length=
    1000, batch_size=64)``, a few ``sample()`` calls and ``sample_many(16)``,
-   with the kernels' launch counts set to 0 just before and read just after,
-   and CUDA's sync debug mode raising on any host round-trip while sampling.
-   Every batch is then held bit-equal against the plain PyTorch version on
-   the same draws.
+   with the kernels' launch counts set to 0 just before and read just after
+   (one draw launch a call), and CUDA's sync debug mode raising on any host
+   round-trip while sampling.  Every batch is then held bit-equal against the
+   plain PyTorch versions of the draws (``ops/threefry.py``) and the encode.
+   The draw kernel is held bit-equal to its plain version at the main path's
+   64, 1,024 and 16,384 lanes for several keys and steps, with a key held on
+   the card and with a chain link's digest; and the sampler's draws of one
+   step, and one ``fold_in`` of a digest, to ``JAX_DRAWS``, which the JAX
+   package computed (the card's machine has no JAX).
 4. Edge fixtures, kernel against plain, bit-equal: empty rows, a row that
    overflows K, duplicate positions, windows crossing coarse-grid buckets, a
    window clamped at the genome's end, starts and ends on the bucket
@@ -34,7 +39,11 @@ Phases (any failure exits non-zero; nothing is caught):
    wrapper's host time, the kernel's bound, the slice of the row it reads,
    a launch floor (``fill_`` of a (B,) int32 tensor, timed the same two
    ways), ``sample_many`` windows/s and ``sample()`` ms (host clock), and a
-   ``torch.profiler`` trace of ``sample_many``.
+   ``torch.profiler`` trace of ``sample_many``.  The draw kernel at 64, 1,024
+   and 16,384 lanes on fresh keys: back to back behind a sleep kernel (CUDA
+   events) and from the profiler, the wrapper's host time, the plain
+   version's device (profiler) and host time, and its bound (int32 work at
+   64 lanes an SM, or bytes).
 7. Converter input from ``--seed``, under the git-ignored build directory: a
    BGZF chr1 cohort VCF of 6,468,094 records (1000 Genomes Phase 3 chr1)
    over GRCh38 chr1's length, 8 samples, with SNVs, indels, multi-allelic
@@ -77,7 +86,8 @@ Phases (any failure exits non-zero; nothing is caught):
    sync debug mode raising on any host round-trip after the first three)
    and ``train_on_sampler`` for 5 steps, with the window kernel's launch
    count set to 0 just before and read just after (one launch a batch
-   drawn); every loss finite; the first fused batch bit-equal to the plain
+   drawn, and one draw launch a batch); every loss finite; the first fused
+   batch bit-equal to the plain
    version.  The model on the card against the CPU from one seed's params:
    d_model 64 x 2 layers in float32 with TF32 off (largest relative error
    within ``F32_TOL``) and the default configuration in bf16 against
@@ -115,8 +125,8 @@ Phases (any failure exits non-zero; nothing is caught):
    byte bound of 7 bytes a base) and d2h, with its peak device memory;
    ``GenomeTensors.from_fasta`` equal to the card's codes; a
    ``DeviceHaplotypeSampler`` on that genome (16 donors, SNVs at ~1.2 per kb,
-   100,000 regions) drawing 4 batches at B=64, L=1000, with the window
-   kernel's launch count set to 0 just before and read just after, each batch
+   100,000 regions) drawing 4 batches at B=64, L=1000, with the window and
+   draw kernels' launch counts set to 0 just before and read just after, each batch
    bit-equal to the plain version; ``pack_2bit_device`` on chr1's codes equal
    to numpy ``pack_2bit`` and round-tripped, ``gather_window_2bit`` at 518
    windows equal to the codes' slices; ``doctor.run_checks()`` printed, every
@@ -152,8 +162,8 @@ Phases (any failure exits non-zero; nothing is caught):
    bit-equal to ``make_train_step()``'s from the same seed after each of 5
    steps, both timed in turns (CUDA events) and traced (``torch.profiler``),
    and bit-equal again after;
-   ``train_on_sampler(mesh=...)`` for 3 steps with the window kernel's
-   launches counted (one a batch); ``sharded_decode_frames`` on one donor's
+   ``train_on_sampler(mesh=...)`` for 3 steps with the window and draw
+   kernels' launches counted (one each a batch); ``sharded_decode_frames`` on one donor's
    chr1 64-byte frames (one decode64 launch, counted) bit-equal to the
    unsharded kernel call and to the plain version;
    ``ShardedGenome.from_codes`` of the deployment genome from the host (halo
@@ -165,21 +175,23 @@ Phases (any failure exits non-zero; nothing is caught):
    of the single pass's structs.
 
 18. ``DeviceHaplotypeSampler.sample_chain`` on the phase-3 sampler, one CUDA
-   graph of window-kernel links: ``chain_run(3, 4, key=k)`` on the graph
-   equal to the same chain run eagerly through the plain version (the
-   digest, each link's seed, the last link's windows bit-equal); five calls
-   with the window kernel's launch count set to 0 just before and read just
-   after (3 launches a call, counted a replay) under CUDA's sync debug mode
+   graph of links of a draw launch and a window-kernel launch:
+   ``chain_run(3, 4, key=k)`` on the graph equal to the same chain run
+   eagerly through the plain versions (the digest, each link's key, the last
+   link's windows bit-equal), link 0's key ``PRNGKey(k)``; five calls with
+   both kernels' launch counts set to 0 just before and read just after (3
+   launches each a call, counted a replay) under CUDA's sync debug mode
    raising on any host round-trip; two key-less calls give two digests and
-   advance the step, two calls of one key one digest; the chain's draws on
-   the card equal to the CPU's; ``emit_onehot`` at (2, 2) on a sampler of
-   its own, graph against eager.  Times: ``sample_chain(16, 256)`` (the JAX
-   bench's chain) a call with its digest fetch (median of 12, host clock)
-   and device-resident windows/s, in turns with ``sample_many(16)``; its
-   device ms a call and a link (CUDA events); the window kernel at a link's
-   B = 16,384 (CUDA events) beside its bound.  At that timed shape too, the
+   advance the step, two calls of one key one digest; a link's draws from
+   the card's last key and digest equal to the CPU's; ``emit_onehot`` at (2,
+   2) on a sampler of its own, graph against eager.  Times:
+   ``sample_chain(16, 256)`` (the JAX bench's chain) a call with its digest
+   fetch (median of 12, host clock) and device-resident windows/s, in turns
+   with ``sample_many(16)``; its device ms a call and a link (CUDA events);
+   the window kernel and the draw kernel at a link's B = 16,384 (CUDA
+   events) beside their bounds.  At that timed shape too, the
    graph's ``chain_run(16, 256, key=k)`` equal to the eager plain chain
-   (digest, seeds, the last link's 16,384 windows) and two of the timed
+   (digest, keys, the last link's 16,384 windows) and two of the timed
    B = 16,384 launches bit-equal to the plain version.
 
 The lines before the last are a JSON object ``{"train": {...}}`` of phase
@@ -256,6 +268,7 @@ from haplohyped_tpu_torch.ops.decode_kernel import (
     decode_frames12_kernel,
     decode_frames_kernel,
 )
+from haplohyped_tpu_torch.ops.draw_kernel import draw_windows, draws_plain
 from haplohyped_tpu_torch.ops.haplotype_window import (
     HaplotypeWindows,
     encode_haplotype_windows,
@@ -266,6 +279,7 @@ from haplohyped_tpu_torch.ops.pack import (
     pack_2bit_device,
     unpack_2bit_device,
 )
+from haplohyped_tpu_torch.ops.threefry import MASK32, fold_in_words, prng_key
 from haplohyped_tpu_torch.ops.vcf_decode import (
     decode_frames,
     decode_frames12_packed,
@@ -333,6 +347,19 @@ from haplohyped_tpu_torch.tools.deployment import N_REGIONS, make_cohort, make_r
 from haplohyped_tpu_torch.utils.bitpack import pack_2bit
 
 SEQ_LENGTH, BATCH, K_MAX = 1000, 64, 128
+
+#: one sampling step's draws as the JAX package makes them, at the deployment
+#: state's sizes (R, D, C): step ``step`` of ``PRNGKey(seed)``, B lanes, and
+#: the chain link key ``fold_in(PRNGKey(seed), digest)``.  Computed with
+#: jax.random on a CPU; tests/test_torch_draw_kernel.py holds them against JAX
+JAX_DRAWS = dict(
+    seed=2024, step=123_456, sizes=(100_000, 128, 12), B=16,
+    region=[79046, 72660, 44791, 64234, 92262, 71448, 20971, 91173,
+            52743, 35512, 81313, 49360, 79810, 26754, 32073, 67374],
+    donor=[28, 49, 115, 90, 17, 81, 106, 69, 71, 80, 5, 95, 20, 107, 63, 63],
+    chrom=[1, 7, 3, 9, 9, 2, 11, 9, 5, 5, 11, 10, 8, 6, 2, 4],
+    digest=0x9E3779B9, link_key=[4206435521, 3066003257],
+)
 
 #: hand-made records for the decode kernels' edge cases: POS 1 and 0 (start
 #: wraps to 0xFFFFFFFF), genotypes missing in either allele or both, haploid
@@ -572,6 +599,112 @@ def random_draws(sampler, B, L, gen):
 
 
 # ---------------------------------------------------------------------------
+# phases 3 and 6: the draw kernel
+# ---------------------------------------------------------------------------
+
+#: the main path's draw launches, in batches of B=64: sample(), sample_many(16)
+#: and a link of sample_chain(16, 256)
+DRAW_BATCHES = (1, 16, 256)
+#: int32 operations of one threefry2x32 hash: the third key word (2 xors),
+#: the first injection (2 adds), 20 rounds of add, rotate and xor, and 5
+#: injections of 3 adds
+THREEFRY_OPS = 2 + 2 + 20 * 3 + 5 * 3
+#: int32 operations a lane beyond its hashes: 3 randint reductions (2 xors,
+#: 3 remainders, a product and an add each) and the crop (8)
+DRAW_LANE_OPS = 3 * 7 + 8
+#: H100 SXM int32 rate: 64 INT32 lanes an SM x 132 SMs x 1.98 GHz (the
+#: table's 67 TFLOP/s float32 is 128 lanes x 2 for a fused multiply-add)
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+
+
+def draw_args(sampler) -> tuple:
+    """The draws' operands after the batch size: regions, lengths, D, L."""
+    return sampler._regions, sampler._lengths, sampler.cohort.num_donors, SEQ_LENGTH
+
+
+def draw_bound(draws) -> tuple[float, str]:
+    """``(ms, "bytes" or "operations")``: the least time of one draw call,
+    the larger of its int32 work over INT32_OPS_PER_S (the function needs 6
+    hashes a lane and 10 a batch, whatever the kernel repeats) and its bytes
+    over HBM_BYTES_PER_S (4 int32 stores a lane, the key, and each region
+    span and chromosome length the draws name, read once)."""
+    lanes = draws.start.numel()
+    ops = (lanes * (6 * THREEFRY_OPS + DRAW_LANE_OPS)
+           + lanes // BATCH * 10 * THREEFRY_OPS)
+    nbytes = (16 * lanes + 16 + 8 * torch.unique(draws.region_idx).numel()
+              + 4 * torch.unique(draws.chrom_idx).numel())
+    t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def draw_checks(sampler, seed: int, cmp: Comparisons) -> int:
+    """Phase 3's draw checks: the kernel bit-equal to ``draws_plain`` at
+    every ``DRAW_BATCHES`` shape for several keys and steps, with a key the
+    card holds and with a chain link's digest; the sampler's draws of
+    ``JAX_DRAWS``' step equal to the JAX package's.  Returns the lanes
+    compared."""
+    dev, args = sampler.device, draw_args(sampler)
+    keys = [(0, 0), prng_key(seed), (MASK32, 0x12345678), ((seed * 2654435761) & MASK32, 7)]
+    steps = (0, 1, 123_457, 2**31 - 300, -5)
+    digest = torch.tensor(0xDEADBEEF, dtype=torch.int64, device=dev)
+    lanes = 0
+    for n in DRAW_BATCHES:
+        for key in keys:
+            for step in steps:
+                got = draw_windows(key, step, n, BATCH, *args)
+                cmp.windows(got, draws_plain(key, step, n, BATCH, *args),
+                            f"draw kernel key {key} step {step} x{n}")
+                lanes += n * BATCH
+        on_card = got.key  # a key the card holds, with and without a digest
+        for d in (None, digest):
+            cmp.windows(draw_windows(on_card, 0, n, BATCH, *args, digest=d),
+                        draws_plain(on_card, 0, n, BATCH, *args, digest=d),
+                        f"draw kernel, a key on the card, digest {d is not None}, x{n}")
+            lanes += 2 * n * BATCH
+    c = JAX_DRAWS
+    sizes = (args[0].shape[0], args[2], args[1].shape[0])
+    check(sizes == c["sizes"], f"the state's draw sizes {sizes} are not JAX_DRAWS' {c['sizes']}")
+    r, d, ch = (t[:c["B"]].tolist() for t in sampler.draw_indices(c["step"], key=c["seed"]))
+    check([r, d, ch] == [c["region"], c["donor"], c["chrom"]],
+          f"the draws of step {c['step']} of PRNGKey({c['seed']}) differ from the JAX package's")
+    link = draw_windows(prng_key(c["seed"]), 0, 1, BATCH, *args,
+                        digest=torch.tensor(c["digest"], dtype=torch.int64, device=dev))
+    check(link.key.tolist() == c["link_key"], "fold_in(key, digest) on the card differs from JAX's")
+    return lanes
+
+
+def draw_times(card: str, sampler) -> dict:
+    """The draw kernel at each ``DRAW_BATCHES`` shape on fresh keys: device
+    time a launch back to back behind a sleep kernel (CUDA events) and from
+    the profiler, the wrapper's host time, the plain version's device time
+    (profiler) and host time, and the bound.  Returns each shape's numbers,
+    keyed by its lane count."""
+    args = draw_args(sampler)
+    out = {}
+    for n in DRAW_BATCHES:
+        calls = [(((i * 2654435761) & MASK32, i), i, n, BATCH, *args) for i in range(200)]
+        ev, host = device_ms(draw_windows, calls)
+        prof = profiler_device_ms(draw_windows, calls)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in calls[:5]:
+            draws_plain(*x)
+        torch.cuda.synchronize()
+        host_plain = (time.perf_counter() - t0) * 1e3 / 5
+        plain = profiler_device_ms(draws_plain, calls[:5])
+        bound, by = draw_bound(draw_windows(*calls[0]))
+        lanes = n * BATCH
+        out[lanes] = {"ms": ev, "profiler_ms": prof, "host_ms": host, "plain_ms": plain,
+                      "plain_host_ms": host_plain, "bound_ms": bound, "bound_by": by}
+        log(f"[{card}] draw kernel at {lanes} lanes ({n} x B={BATCH}), 200 fresh keys: "
+            f"{ev:.6f} ms/launch back to back (CUDA events), {_ms_text(prof, 'ms/launch')} "
+            f"device busy (profiler), {host:.5f} ms/call wrapper host time; plain version "
+            f"{_ms_text(plain, 'ms/call')} device busy (profiler), {host_plain:.4f} ms/call "
+            f"host time; bound {bound:.7f} ms ({by})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: small files in the reference layout
 # ---------------------------------------------------------------------------
 
@@ -696,10 +829,10 @@ def window_batches(sampler, first_step: int, n: int, steps: int) -> list:
     consecutive sampling steps from ``first_step`` on (``steps * B``
     windows, as ``sample_many(steps)`` encodes them)."""
     out = []
+    base = prng_key(sampler.config.seed)
     for i in range(first_step, first_step + n * steps, steps):
-        r, d, c = (torch.cat(t) for t in zip(*(sampler.draw_indices(j)
-                                                for j in range(i, i + steps))))
-        out.append((d, c, sampler.window_starts(r, c)))
+        d = draw_windows(base, i, steps, BATCH, *draw_args(sampler))
+        out.append((d.donor_idx, d.chrom_idx, d.start))
     return out
 
 
@@ -1306,10 +1439,10 @@ def train_path(seed: int, sampler, cmp: Comparisons) -> dict:
     ``train_on_sampler``, with the window kernel's launch count set to 0 just
     before and read just after; the first fused batch against the plain
     version; the model on the card against the CPU; a checkpoint round trip."""
-    first = sampler.windows_from_draws(*sampler.draw_indices(FUSED_STEP0))
+    first = sampler.batch_at(FUSED_STEP0)
     state = create_train_state(HaploFormerConfig(), (first.hap1, first.hap2), seed=seed)
     fused = make_fused_train_step(sampler)
-    encode_windows_kernel.launches = 0
+    encode_windows_kernel.launches = draw_windows.launches = 0
     t0 = time.perf_counter()
     metrics = []
     for i in range(N_FUSED):
@@ -1319,16 +1452,18 @@ def train_path(seed: int, sampler, cmp: Comparisons) -> dict:
     torch.cuda.set_sync_debug_mode(0)
     _, losses = train_on_sampler(sampler, steps=N_TRAIN_ON, log_every=1, seed=seed)
     torch.cuda.synchronize()
-    launches = encode_windows_kernel.launches
+    launches, draws = encode_windows_kernel.launches, draw_windows.launches
     n_batches = N_FUSED + 1 + N_TRAIN_ON
     fused_losses = torch.stack([m["loss"] for m in metrics]).tolist()
     log(f"training path: {N_FUSED} fused steps and train_on_sampler({N_TRAIN_ON} steps) in "
-        f"{time.perf_counter() - t0:.2f} s; window kernel launches {launches} for {n_batches} "
+        f"{time.perf_counter() - t0:.2f} s; window kernel launches {launches} and draw kernel "
+        f"launches {draws} for {n_batches} "
         f"batches; fused losses {[round(x, 4) for x in fused_losses]}; train_on_sampler "
         f"losses {[round(x, 4) for x in losses]}")
     check(launches == n_batches, f"{launches} window kernel launches for {n_batches} batches")
+    check(draws == n_batches, f"{draws} draw kernel launches for {n_batches} batches")
     check(all(map(math.isfinite, fused_losses + losses)), "a loss is not finite")
-    want = sampler.windows_from_draws(*sampler.draw_indices(FUSED_STEP0), kernel="baseline")
+    want = sampler.batch_at(FUSED_STEP0, kernel="baseline")
     cmp.windows(first, want, "first fused step's batch")
 
     errs = card_against_cpu((first.hap1[:8], first.hap2[:8], first.n_variants[:8]), seed)
@@ -1353,7 +1488,7 @@ def train_path(seed: int, sampler, cmp: Comparisons) -> dict:
     check(torch.equal(la, lb), "the restored model's loss differs")
     log(f"checkpoint round trip on the card: step {back.step}, model and AdamW state "
         "bit-equal, the next batch's loss bit-equal")
-    return {"window_launches": launches, "batches": n_batches, **errs,
+    return {"window_launches": launches, "draw_launches": draws, "batches": n_batches, **errs,
             "fused_losses": [fused_losses[0], fused_losses[-1]], "train_on_sampler_losses": losses}
 
 
@@ -1393,7 +1528,7 @@ def stage_split(state, batches, sampler, step0: int) -> dict:
         return out
 
     for i, b in enumerate(batches):
-        stage("sample", lambda: sampler.windows_from_draws(*sampler.draw_indices(step0 + i)))
+        stage("sample", lambda: sampler.batch_at(step0 + i))
         loss = stage("forward", lambda: loss_fn(state.model, b.hap1, b.hap2, b.n_variants)[0])
         state.optimizer.zero_grad(set_to_none=True)
         stage("backward", loss.backward)
@@ -1898,14 +2033,15 @@ def reference_phase(card: str, tmp: str, seed: int, dev, cmp: Comparisons) -> tu
     sampler = DeviceHaplotypeSampler(genome, cohort, regions,
                                      SamplerConfig(seq_length=SEQ_LENGTH, batch_size=BATCH),
                                      device=dev)
-    encode_windows_kernel.launches = 0
+    encode_windows_kernel.launches = draw_windows.launches = 0
     batches = [sampler.sample() for _ in range(REF_BATCHES)]
     torch.cuda.synchronize()
-    launches = encode_windows_kernel.launches
+    launches, draws = encode_windows_kernel.launches, draw_windows.launches
     check(launches == REF_BATCHES, f"window kernel launches {launches} != {REF_BATCHES}")
+    check(draws == REF_BATCHES, f"draw kernel launches {draws} != {REF_BATCHES}")
     n_var = 0
     for step, b in enumerate(batches):
-        want = sampler.windows_from_draws(*sampler.draw_indices(step), kernel="baseline")
+        want = sampler.batch_at(step, kernel="baseline")
         cmp.windows(b, want, f"reference sampler step {step}")
         n_var += int(b.n_variants.sum())
     check(n_var > 0, "the reference sampler's windows hold no variants")
@@ -1961,7 +2097,8 @@ def reference_phase(card: str, tmp: str, seed: int, dev, cmp: Comparisons) -> tu
             "fai_lines": n_lines, "bases": n1, "fetch_s": fetch_s, "native_fetch_s": native_s,
             "encode_s": e2e_s, "encode_host_s": host_s, **split, "bound_ms": bound_ms,
             "peak_mem_gib": peak / 2**30, "from_fasta_s": from_fasta_s,
-            "window_launches": launches, "pack_ms_runs": pack_runs, "phase_s": phase_s}, launches
+            "window_launches": launches, "draw_launches": draws, "pack_ms_runs": pack_runs,
+            "phase_s": phase_s}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2384,18 +2521,21 @@ def parallel_train(card: str, seed: int, sampler, mesh) -> dict:
         "ms (" + ", ".join(f"{x:.4f}" for x in ms["unsharded"]) + ")")
     del st, batches, timed
 
-    encode_windows_kernel.launches = 0
+    encode_windows_kernel.launches = draw_windows.launches = 0
     _, tos_losses = train_on_sampler(sampler, steps=N_PAR_TRAIN_ON, log_every=1, seed=seed,
                                      mesh=mesh)
     torch.cuda.synchronize()
-    launches = encode_windows_kernel.launches
+    launches, draws = encode_windows_kernel.launches, draw_windows.launches
     check(launches == N_PAR_TRAIN_ON + 1, f"train_on_sampler(mesh): {launches} window launches")
+    check(draws == N_PAR_TRAIN_ON + 1, f"train_on_sampler(mesh): {draws} draw launches")
     check(all(map(math.isfinite, losses + tos_losses)), "a loss is not finite")
     log(f"train_on_sampler(mesh=..., steps={N_PAR_TRAIN_ON}): losses "
-        f"{[round(x, 4) for x in tos_losses]}; window kernel launches {launches}")
+        f"{[round(x, 4) for x in tos_losses]}; window kernel launches {launches}, draw kernel "
+        f"launches {draws}")
     return {"checked_steps": N_PAR_CHECK, "losses": losses, "ms_step_sharded": ms["sharded"],
             "ms_step_unsharded": ms["unsharded"], "trace": traces,
-            "train_on_sampler_losses": tos_losses, "window_launches": launches}
+            "train_on_sampler_losses": tos_losses, "window_launches": launches,
+            "draw_launches": draws}
 
 
 def parallel_decode(card: str, chr1: str, donor: str, mesh, dev) -> dict:
@@ -2597,18 +2737,21 @@ def chain_phase(card: str, seed: int, genome, cohort, regions, sampler,
 
     # the chain's run: every launch counted, no host round-trip before the fetch
     step0 = sampler._step
-    encode_windows_kernel.launches = 0
+    encode_windows_kernel.launches = draw_windows.launches = 0
     torch.cuda.set_sync_debug_mode("error")
     got = sampler.chain_run(n_chain, n_batches, key=key)
     keyless = [sampler.sample_chain(n_chain, n_batches) for _ in range(2)]
     same = [sampler.sample_chain(n_chain, n_batches, key=key + 1) for _ in range(2)]
     torch.cuda.set_sync_debug_mode(0)
-    launches = encode_windows_kernel.launches
+    launches, draws = encode_windows_kernel.launches, draw_windows.launches
     check(launches == 5 * n_chain, f"5 chains of {n_chain} links launched the window kernel "
                                    f"{launches} times")
+    check(draws == 5 * n_chain, f"5 chains of {n_chain} links launched the draw kernel "
+                                f"{draws} times")
     check(int(got.digest) == int(want.digest),
           f"chain digest {int(got.digest)} differs from the eager plain chain's {int(want.digest)}")
-    check(torch.equal(got.seeds, want.seeds), "a link's seed differs from the eager plain chain's")
+    check(torch.equal(got.keys, want.keys), "a link's key differs from the eager plain chain's")
+    check(got.keys[0].tolist() == list(prng_key(key)), "link 0's key is not PRNGKey(key)")
     flat = HaplotypeWindows(*(t.reshape(-1, *t.shape[2:]) for t in got.last[2:]))
     cmp.windows(flat, HaplotypeWindows(*(t.reshape(-1, *t.shape[2:]) for t in want.last[2:])),
                 f"sample_chain{CHAIN_CHECK} last link")
@@ -2617,29 +2760,33 @@ def chain_phase(card: str, seed: int, genome, cohort, regions, sampler,
     check(sampler._step == step0 + 2 * n_chain * n_batches, "a key-less chain kept the step")
     check(int(keyless[0]) != int(keyless[1]), "two key-less chains gave one digest")
     check(int(same[0]) == int(same[1]), "two chains of one key gave two digests")
-    s = torch.tensor([-0x61C8864680B583EB * (seed + 1)])  # a negative int64 seed
-    on_card = sampler.chain_draws(s.to(sampler.device), CHAIN_TIMED[1])
-    on_cpu = sampler.chain_draws(s, CHAIN_TIMED[1])
+    # a link's draws from the last key on the card, with its digest, against the CPU's
+    args = draw_args(sampler)
+    last_key, digest = got.keys[-1], chain_digest(got.last)
+    on_card = draw_windows(last_key, 0, CHAIN_TIMED[1], BATCH, *args, digest=digest)
+    on_cpu = draws_plain(last_key.cpu(), 0, CHAIN_TIMED[1], BATCH,
+                         *(t.cpu() for t in args[:2]), *args[2:], digest=digest.cpu())
     check(all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)),
           "the chain's draws on the card differ from the CPU's")
-    out |= {"digest": int(got.digest), "launches": launches,
-            "draws_checked": sum(t.numel() for t in on_cpu)}
+    out |= {"digest": int(got.digest), "launches": launches, "draw_launches": draws,
+            "draws_checked": on_cpu.start.numel()}
 
     # the one-hot chain, on a sampler of its own over the same state
     onehot = DeviceHaplotypeSampler(genome, cohort, regions, sampler.config, emit_onehot=True)
     a = onehot.chain_run(*CHAIN_ONEHOT, key=key, kernel="baseline")
     b = onehot.chain_run(*CHAIN_ONEHOT, key=key)
     b = onehot.chain_run(*CHAIN_ONEHOT, key=key)  # a replay of the cached graph
-    check(int(a.digest) == int(b.digest) and torch.equal(a.seeds, b.seeds),
+    check(int(a.digest) == int(b.digest) and torch.equal(a.keys, b.keys),
           "emit_onehot: the graph's chain differs from the eager plain chain")
     check(torch.equal(a.last.hap1, b.last.hap1), "emit_onehot: one-hot windows differ")
     check(int(chain_digest(b.last)) == host_digest(b.last),
           "emit_onehot: chain_digest on the card differs from the host's")
     del onehot, a, b
     log(f"chain checks: sample_chain{CHAIN_CHECK} bit-equal to the eager plain chain (digest "
-        f"{out['digest']}, {n_chain} seeds, the last link's {n_batches * BATCH} windows), "
-        f"{launches} launches for 5 calls under sync debug mode 'error'; key-less calls "
-        f"advance the step; {out['draws_checked']:,} draws equal to the CPU's; "
+        f"{out['digest']}, {n_chain} keys, the last link's {n_batches * BATCH} windows), "
+        f"{launches} window and {draws} draw launches for 5 calls under sync debug mode "
+        f"'error'; key-less calls advance the step; {out['draws_checked']:,} lanes of a "
+        f"link's draws from the card's last key equal to the CPU's; "
         f"emit_onehot {CHAIN_ONEHOT} equal; first call (warm-up, capture) {out['capture_s']:.3f} s")
 
     # times: the chain with its digest fetch, in turns with sample_many(16)
@@ -2647,50 +2794,61 @@ def chain_phase(card: str, seed: int, genome, cohort, regions, sampler,
     t0 = time.perf_counter()
     int(sampler.sample_chain(n_chain, n_batches, key=key))
     out["timed_capture_s"] = time.perf_counter() - t0
-    chain_s, many_s = [], []
+    chain_s, keyless_s, many_s = [], [], []
     for i in range(N_CHAIN_CALLS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         int(sampler.sample_chain(n_chain, n_batches, key=key + 100 + i))  # the fetch attests
         chain_s.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
+        int(sampler.sample_chain(n_chain, n_batches))  # its first key hashed on the host
+        keyless_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
         sampler.sample_many(16)
         torch.cuda.synchronize()
         many_s.append(time.perf_counter() - t0)
     windows = n_chain * n_batches * BATCH
     med_chain, med_many = float(np.median(chain_s)), float(np.median(many_s))
+    med_keyless = float(np.median(keyless_s))
+    host_key = [sampler._base_key, sampler._step]
+    t0 = time.perf_counter()
+    for i in range(1000):
+        fold_in_words(*host_key)
+    fold_in_us = (time.perf_counter() - t0) * 1e3
     ev, _ = device_ms(lambda k: sampler.sample_chain(n_chain, n_batches, key=k),
                       [(key + 200 + i,) for i in range(4)])
     out |= {"n_chain": n_chain, "n_batches": n_batches, "B": BATCH, "L": SEQ_LENGTH,
             "chain_call_s": med_chain, "chain_windows_per_s": windows / med_chain,
+            "keyless_chain_call_s": med_keyless, "host_fold_in_us": fold_in_us,
             "sample_many16_s": med_many, "sample_many16_windows_per_s": 16 * BATCH / med_many,
             "chain_device_ms": ev, "link_device_ms": ev / n_chain}
 
     # where a link's time goes: one link run eagerly, traced
-    seed_t = torch.tensor([key], device=sampler.device)
-    trace, stats = trace_calls(lambda: sampler._chain_links(seed_t, 1, n_batches, "kernel"), 5,
+    link_key = prng_key(key)
+    trace, stats = trace_calls(lambda: sampler._chain_links(link_key, 1, n_batches, "kernel"), 5,
                                f"one eager link of sample_chain{CHAIN_TIMED}", top=8)
     log(f"[{card}] {trace}")
     out |= {"link_eager_busy_ms": stats["busy_ms"], "link_eager_device_ops": stats["ops"]}
 
-    # the kernel alone at a link's shape, B = n_batches * 64, on chain draws
-    batches = []
-    for i in range(N_LINK_BATCHES):
-        r, d, c = sampler.chain_draws(torch.tensor([key + 300 + i], device=sampler.device),
-                                      n_batches)
-        batches.append((d, c, sampler.window_starts(r, c)))
+    # the kernels alone at a link's shape, B = n_batches * 64, on chain draws
+    calls = [(prng_key(key + 300 + i), 0, n_batches, BATCH, *args)
+             for i in range(N_LINK_BATCHES)]
+    ev_draw, _ = device_ms(draw_windows, calls)
+    batches = [(d.donor_idx, d.chrom_idx, d.start) for d in (draw_windows(*x) for x in calls)]
+    draw_bound_ms, _ = draw_bound(draw_windows(*calls[0]))
     kern = functools.partial(encode_windows_kernel, sampler.index, L=SEQ_LENGTH, K=K_MAX)
     ev_kernel, _ = device_ms(kern, batches)
     outs = [kern(*x) for x in batches]
     slices = [window_slice(sampler.index, *x, SEQ_LENGTH) for x in batches]
     bound = lab.bound_ms("prod", slices, [o.n_variants.clamp(max=K_MAX) for o in outs], SEQ_LENGTH)
-    out |= {"link_B": n_batches * BATCH, "link_kernel_ms": ev_kernel, "link_kernel_bound_ms": bound}
+    out |= {"link_B": n_batches * BATCH, "link_kernel_ms": ev_kernel, "link_kernel_bound_ms": bound,
+            "link_draw_ms": ev_draw, "link_draw_bound_ms": draw_bound_ms}
 
     # the kernel at the timed shape against the plain version: the graph's chain
     # and two of the timed launches
     want = sampler.chain_run(n_chain, n_batches, key=key, kernel="baseline")
     got = sampler.chain_run(n_chain, n_batches, key=key)
-    check(int(got.digest) == int(want.digest) and torch.equal(got.seeds, want.seeds),
+    check(int(got.digest) == int(want.digest) and torch.equal(got.keys, want.keys),
           f"sample_chain{CHAIN_TIMED}: the graph's chain differs from the eager plain chain")
     flat = HaplotypeWindows(*(t.reshape(-1, *t.shape[2:]) for t in got.last[2:]))
     cmp.windows(flat, HaplotypeWindows(*(t.reshape(-1, *t.shape[2:]) for t in want.last[2:])),
@@ -2704,12 +2862,15 @@ def chain_phase(card: str, seed: int, genome, cohort, regions, sampler,
     del want, got, flat
     log(f"[{card}] sample_chain{CHAIN_TIMED}: {med_chain * 1e3:.4f} ms a call with its digest "
         f"fetch (median of {N_CHAIN_CALLS}, host clock) = {windows / med_chain:,.0f} "
-        f"device-resident windows/s; {ev:.4f} ms device a call, {ev / n_chain:.5f} ms a link "
+        f"device-resident windows/s; key-less, in turns, {med_keyless * 1e3:.4f} ms a call "
+        f"(its first key's fold_in on the host {fold_in_us:.2f} us); {ev:.4f} ms device a call, {ev / n_chain:.5f} ms a link "
         f"(CUDA events); in turns, sample_many(16) {med_many * 1e3:.4f} ms = "
         f"{16 * BATCH / med_many:,.0f} windows/s; the window kernel at B={n_batches * BATCH}: "
         f"{ev_kernel:.5f} ms a launch (CUDA events), bound {bound:.5f} ms (bytes, 3.35 TB/s); "
+        f"the draw kernel there: {ev_draw:.6f} ms a launch (CUDA events), bound "
+        f"{draw_bound_ms:.6f} ms; "
         f"at this shape the graph's chain equal to the eager plain chain (digest "
-        f"{out['timed_shape_checked']['digest']}, {n_chain} seeds, the last link's "
+        f"{out['timed_shape_checked']['digest']}, {n_chain} keys, the last link's "
         f"{n_batches * BATCH} windows) and {N_LINK_CHECKED} launches equal to the plain version")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"chain phase: {out['phase_s']:.1f} s")
@@ -2779,18 +2940,18 @@ def main() -> int:
 
     # -- 3. main path -------------------------------------------------------
     cfg = SamplerConfig(seq_length=SEQ_LENGTH, batch_size=BATCH)
-    encode_windows_kernel.launches = 0
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     sampler = DeviceHaplotypeSampler(genome, cohort, regions, cfg)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    encode_windows_kernel.launches = draw_windows.launches = 0
     torch.cuda.set_sync_debug_mode("error")  # no host round-trip while sampling
     singles = [sampler.sample() for _ in range(3)]
     many = sampler.sample_many(16)
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    main_launches = encode_windows_kernel.launches
+    main_launches, main_draws = encode_windows_kernel.launches, draw_windows.launches
     first = sampler.index.first
     index_bytes = sampler.index.sub12.nbytes + first.nbytes
     log(f"main path: sampler construction (index build) {t1 - t0:.3f} s, "
@@ -2799,17 +2960,23 @@ def main() -> int:
         f"bucket table first "
         f"{tuple(first.shape)} at BK={BK} {first.nbytes / 2**30:.3f} GiB); "
         f"3 x sample() + sample_many(16) "
-        f"{time.perf_counter() - t1:.3f} s; kernel launches {main_launches}; "
+        f"{time.perf_counter() - t1:.3f} s; window kernel launches {main_launches}, draw "
+        f"kernel launches {main_draws}; "
         f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     check(sampler.kernel == "kernel", "auto must pick the kernel on CUDA")
     check(main_launches > 0, "the main path never launched the window kernel")
+    check(main_draws == 4, f"3 x sample() + sample_many(16) launched the draw kernel "
+                           f"{main_draws} times, not once a call")
 
+    # the plain versions of the draws and the encode, from the sampler's key
+    base = prng_key(cfg.seed)
     for step, b in enumerate(singles):
         check(b.hap1 is b.hap1_codes and b.hap1.shape == (BATCH, SEQ_LENGTH), "batch form")
-        want = sampler.windows_from_draws(*sampler.draw_indices(step), kernel="baseline")
+        d = draws_plain(base, step, 1, BATCH, *draw_args(sampler))
+        want = sampler.windows_from_draws(*d[1:4], kernel="baseline")
         cmp.windows(b, want, f"sample() step {step}")
-    draws = [sampler.draw_indices(s) for s in range(3, 19)]
-    want = sampler.windows_from_draws(*(torch.cat(t) for t in zip(*draws)), kernel="baseline")
+    d = draws_plain(base, 3, 16, BATCH, *draw_args(sampler))
+    want = sampler.windows_from_draws(*d[1:4], kernel="baseline")
     flat = HaplotypeWindows(*(t.reshape(-1, *t.shape[2:]) for t in many[2:]))
     cmp.windows(flat, HaplotypeWindows(*want[2:]), "sample_many(16)")
     allcodes = torch.cat([many.hap1_codes.flatten(), many.hap2_codes.flatten()])
@@ -2817,8 +2984,14 @@ def main() -> int:
     check(torch.equal(many.overflow, (many.n_variants - K_MAX).clamp(min=0)), "overflow")
     mean_nv = float(many.n_variants.float().mean())
     check(mean_nv > 0, "windows hold variants")
-    log(f"main path checks: bit-equal to the plain version; mean in-window "
-        f"SNVs {mean_nv:.3f}, max {int(many.n_variants.max())}")
+    log(f"main path checks: bit-equal to the plain versions of the draws and the encode; "
+        f"mean in-window SNVs {mean_nv:.3f}, max {int(many.n_variants.max())}")
+    draw_cmp = Comparisons()
+    lanes = draw_checks(sampler, args.seed, draw_cmp)
+    log(f"draw kernel checks: {draw_cmp.count} launches at {DRAW_BATCHES} x B={BATCH} "
+        f"({lanes:,} lanes) bit-equal to the plain version (host keys, keys on the card, a "
+        f"chain digest); step {JAX_DRAWS['step']} of PRNGKey({JAX_DRAWS['seed']}) and "
+        f"fold_in(key, {JAX_DRAWS['digest']:#x}) equal to the JAX package's")
 
     # -- 4. edge fixtures ---------------------------------------------------
     for name, (state, dr, L, K) in edge_fixtures().items():
@@ -2873,6 +3046,7 @@ def main() -> int:
     ms_kernel, ms_plain, ms_bound = t64["ms"], t64["plain_ms"], t64["bound_ms"]
     log(f"[{card}] " + trace_calls(lambda: sampler.sample_many(16), 10, "sample_many(16)")[0])
     window_times(card, index, window_batches(sampler, 2000, 40, 16), 4, cmp)
+    draw_t = draw_times(card, sampler)
 
     # -- 7-10. the converter -------------------------------------------------
     dec = DecodeComparisons()
@@ -2932,8 +3106,8 @@ def main() -> int:
         "route": "cuda",
         "source": "haplohyped_tpu_torch/csrc/window_kernel.cu",
         "replaces": "haplohyped_tpu/ops/pallas_window.py:178",
-        "launches": (main_launches + ref_launches + parallel["train"]["window_launches"]
-                     + chain_launches),
+        "launches": (main_launches + train["window_launches"] + ref_launches
+                     + parallel["train"]["window_launches"] + chain_launches),
         "max_abs_err": cmp.max_abs_err,
         "ms": ms_kernel,
         "plain_ms": ms_plain,
@@ -2968,6 +3142,20 @@ def main() -> int:
         "plain_ms": lab_times["plain_ms"],
         "bound_ms": lab_times["bound_ms"],
         "bound_by": "bytes",
+        "library_ms": None,
+    })
+    kernels.append({
+        "name": "draw_kernel",
+        "route": "cuda",
+        "source": "haplohyped_tpu_torch/csrc/draw_kernel.cu",
+        "replaces": None,  # no Pallas kernel: the jax.random ops of data/sampler.py:110-116
+        "launches": (main_draws + train["draw_launches"] + reference["draw_launches"]
+                     + parallel["train"]["draw_launches"] + chain["draw_launches"]),
+        "max_abs_err": draw_cmp.max_abs_err,
+        "ms": draw_t[BATCH]["ms"],
+        "plain_ms": draw_t[BATCH]["plain_ms"],
+        "bound_ms": draw_t[BATCH]["bound_ms"],
+        "bound_by": draw_t[BATCH]["bound_by"],
         "library_ms": None,
     })
     log(json.dumps({"kernels": kernels}))

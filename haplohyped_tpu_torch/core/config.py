@@ -57,9 +57,9 @@ class SamplerConfig:
     #: apply the first ``max_variants_per_window`` and report the rest as
     #: overflow
     max_variants_per_window: int = 128
-    #: window encode: "kernel" (the Hopper kernel), "baseline" (the plain
-    #: PyTorch version), or "auto" — the kernel on a CUDA device, the
-    #: baseline on the CPU
+    #: window encode and draws: "kernel" (the Hopper kernels), "baseline"
+    #: (their plain PyTorch versions), or "auto" — the kernels on a CUDA
+    #: device, the baseline on the CPU
     window_kernel: str = "auto"
 
     def __post_init__(self):

@@ -5,20 +5,27 @@ Draws (region, donor, chromosome) triples, crops each region to a window of
 chromosome, and encodes the variant-aware haplotype windows, all on the
 device: each call returns a ready batch with no host round-trip.
 
-Sampling has two steps.  :meth:`DeviceHaplotypeSampler.draw_indices` makes a
-step's draws from a ``torch.Generator`` seeded from ``(config.seed, step)``
-alone (``(key, step)`` under ``key=``), so ``sample_many(n)`` equals ``n``
-successive ``sample()`` calls.  :meth:`DeviceHaplotypeSampler.windows_from_draws`
-turns draws into windows; it takes any draws, so a test can feed it the JAX
-package's own.  The region only supplies a span; region, donor and chromosome
-are drawn independently.
+The draws are the JAX package's own ``jax.random`` stream, bit for bit: step
+``s`` of key ``k`` draws under ``fold_in(k, s)``, split in three, one
+``randint`` a field; the sampler's key is ``PRNGKey(config.seed)``.  So for
+one seed and state both packages give the same windows.  Every call draws
+through one path, :func:`~haplohyped_tpu_torch.ops.draw_kernel.draw_windows`
+(one launch of the draw kernel on the card for all of a call's steps, torch
+ops on the CPU), which also computes each window's start.
+:meth:`DeviceHaplotypeSampler.batch_at` is step ``s``'s batch, which
+``sample``, ``sample_many`` and the fused train step all build this way.
+:meth:`DeviceHaplotypeSampler.draw_indices` returns one step's draws, and
+:meth:`DeviceHaplotypeSampler.windows_from_draws` encodes any draws, so a test
+can feed it the JAX package's own.  The region only supplies a span; region,
+donor and chromosome are drawn independently.
 
 :meth:`DeviceHaplotypeSampler.sample_chain` runs ``n_chain`` dependent
-``sample_many``-sized links, each link's seed mixed from the one before and
-that link's :func:`chain_digest`, and returns the digests' sum: the one fetch
-that proves every link ran.  Its draws are counter-based (:func:`counter_draws`,
-int64 torch ops on a seed that stays on the device), so on the card the whole
-chain is one CUDA graph, replayed with no host round-trip.
+``sample_many``-sized links, as the JAX package's chain does: link ``k + 1``
+draws under ``fold_in(key_k, digest_k)`` of link ``k``'s key and
+:func:`chain_digest`, and the call returns the digests' sum, the one fetch
+that proves every link ran.  The link update runs inside the next link's
+draw launch, so the chain's key never leaves the card, and the whole chain is
+one CUDA graph, replayed with no host round-trip.
 
 Default output is ``(B, L)`` int8 base codes, with ``hap1`` and
 ``hap1_codes`` the same tensor.  ``emit_onehot=True`` adds materialised
@@ -28,7 +35,8 @@ Default output is ``(B, L)`` int8 base codes, with ``hap1`` and
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+import numbers
+from typing import NamedTuple, Union
 
 import numpy as np
 import torch
@@ -37,69 +45,27 @@ from haplohyped_tpu_torch.core.config import SamplerConfig, resolve_device
 from haplohyped_tpu_torch.data.cohort import CohortTensors
 from haplohyped_tpu_torch.data.genome import GenomeTensors
 from haplohyped_tpu_torch.data.regions import load_bed_regions
+from haplohyped_tpu_torch.ops.draw_kernel import (
+    Draws,
+    Key,
+    draw_windows,
+    draws_plain,
+    window_starts,
+)
 from haplohyped_tpu_torch.ops.haplotype_window import (
     encode_haplotype_windows,
     windows_to_onehot,
 )
+from haplohyped_tpu_torch.ops.threefry import MASK32, fold_in_words, prng_key
 from haplohyped_tpu_torch.ops.window_kernel import (
     WindowIndex,
     build_window_index,
     encode_windows_kernel,
 )
 
-_MASK64 = (1 << 64) - 1
-_MASK32 = (1 << 32) - 1
-
-
-def _as_int64(x: int) -> int:
-    """An unsigned 64-bit value as the int64 with the same bits."""
-    return x - (1 << 64) if x >> 63 else x
-
-
-#: splitmix64's increment and finalizer multipliers, and the odd multiplier
-#: that spreads a digest over the 64 seed bits, as int64
-_GOLDEN, _MIX1, _MIX2, _DIGEST_MUL = map(
-    _as_int64, (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB, 0xD1B54A32D192ED03)
-)
-
-
-def _step_seed(seed: int, step: int) -> int:
-    """Generator seed of one sampling step: a splitmix64 mix of ``(seed,
-    step)``.  Both halves of the 64 bits depend on both inputs, since the CPU
-    generator keeps only the low 32."""
-    x = (seed * 0x9E3779B97F4A7C15 + step) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
-
-
-def _lsr(z: torch.Tensor, k: int) -> torch.Tensor:
-    """Logical right shift of int64 ``z`` (torch's ``>>`` is arithmetic)."""
-    return (z >> k) & ((1 << (64 - k)) - 1)
-
-
-def _mix64(z: torch.Tensor) -> torch.Tensor:
-    """splitmix64's finalizer, a bijection of the 64 bits, in int64 ops
-    (products wrap on the CPU and on the card alike)."""
-    z = (z ^ _lsr(z, 30)) * _MIX1
-    z = (z ^ _lsr(z, 27)) * _MIX2
-    return z ^ _lsr(z, 31)
-
-
-def counter_draws(seed: torch.Tensor, n: int, sizes: tuple[int, ...]) -> tuple[torch.Tensor, ...]:
-    """``len(sizes)`` draws of ``n`` lanes, each ``(n,)`` int32 in ``[0,
-    sizes[f])``, a function of the ``(1,)`` int64 ``seed`` alone.
-
-    Draw ``f`` of lane ``i`` is output ``i * len(sizes) + f`` of the
-    splitmix64 stream from ``seed``, ``mix64(seed + (i * F + f + 1) *
-    golden)``, reduced from its high 32 bits ``h`` as ``(h * size) >> 32``.
-    Only device ops on the seed's device, so a CUDA graph can capture it."""
-    F = len(sizes)
-    lane = torch.arange(n, dtype=torch.int64, device=seed.device)
-    field = torch.arange(1, F + 1, dtype=torch.int64, device=seed.device)
-    ctr = lane * F + field[:, None]  # (F, n)
-    hi = _lsr(_mix64(seed + ctr * _GOLDEN), 32)
-    return tuple(((hi[f] * size) >> 32).to(torch.int32) for f, size in enumerate(sizes))
+#: a key: :data:`~haplohyped_tpu_torch.ops.draw_kernel.Key` or an int seed, or
+#: the two words of a JAX key as a sequence or array
+KeyLike = Union[int, Key, np.ndarray]
 
 
 def _parity(codes: torch.Tensor) -> torch.Tensor:
@@ -116,7 +82,7 @@ def chain_digest(batch: "HaplotypeBatch") -> torch.Tensor:
     # keeps it too, so the codes are reduced as they lie: a wider dtype would
     # first write a widened copy of every window
     digest = (_parity(batch.hap1_codes) ^ (_parity(batch.hap2_codes) << 1)
-              ^ (batch.n_variants.sum(dtype=torch.int64) & _MASK32))
+              ^ (batch.n_variants.sum(dtype=torch.int64) & MASK32))
     if batch.hap1.dim() > batch.hap1_codes.dim():  # the one-hot leaves
         # 0/1 leaves: their sum is their count of non-zeros, read in place
         digest = digest ^ ((torch.count_nonzero(batch.hap1) & 1) << 2) ^ (
@@ -141,7 +107,7 @@ class ChainRun(NamedTuple):
     """One :meth:`DeviceHaplotypeSampler.sample_chain` run."""
 
     digest: torch.Tensor  # () int64: the links' digests summed mod 2^32
-    seeds: torch.Tensor  # (n_chain,) int64: each link's seed
+    keys: torch.Tensor  # (n_chain, 2) int64: each link's key, two uint32 words
     last: HaplotypeBatch  # the last link's batches, leaves (n_batches, B, ...)
 
 
@@ -200,7 +166,8 @@ class DeviceHaplotypeSampler:
         self._regions = torch.as_tensor(
             np.asarray(region_spans).astype(np.int32), device=self.device
         )
-        self.generator = torch.Generator(device=self.device)
+        #: ``PRNGKey(config.seed)``'s two words: the key of every key-less draw
+        self._base_key = prng_key(config.seed)
         self._step = 0
         self._chain_graph_cache = None  # ((n_chain, n_batches, emit_onehot), replay)
         if self.kernel == "kernel":
@@ -231,54 +198,53 @@ class DeviceHaplotypeSampler:
         _, spans, _ = load_bed_regions(bed_file)
         return cls(genome, cohort, spans, config, **kwargs)
 
-    @property
-    def _draw_sizes(self) -> tuple[int, int, int]:
-        """The ranges of the region, donor and chromosome draws."""
-        return (self._regions.shape[0], self.cohort.num_donors, len(self.genome.chrom_names))
+    def _key(self, key: KeyLike) -> Key:
+        """A caller's key as the draws take it: an int seed becomes
+        ``PRNGKey(seed)``'s words; a (2,) tensor on the sampler's device stays
+        there (its words as int64, read by the draws with no host trip); the
+        two words of any other (2,) sequence, array or tensor come to the
+        host."""
+        if isinstance(key, numbers.Integral):
+            return prng_key(key)
+        if isinstance(key, torch.Tensor):
+            if key.shape != (2,) or key.dtype.is_floating_point:
+                raise ValueError(f"a key is two integer words, got {tuple(key.shape)} {key.dtype}")
+            if key.device == self.device:
+                return key.to(torch.int64) & MASK32
+            if key.device.type != "cpu":
+                raise ValueError(f"a key on {key.device} for a sampler on {self.device}")
+        words = np.asarray(key)
+        if words.shape != (2,) or words.dtype.kind not in "iu":
+            raise ValueError(f"a key is an int or two integer words, got {key!r}")
+        return tuple(int(w) & MASK32 for w in words)
+
+    def _draws(self, key: Key, step0: int, n_batches: int, kernel: str | None = None,
+               digest: torch.Tensor | None = None) -> Draws:
+        """Steps ``step0 .. step0 + n_batches - 1`` of ``key``: the draw
+        kernel (``"kernel"``) or the plain version (``"baseline"``)."""
+        draw = draw_windows if (kernel or self.kernel) == "kernel" else draws_plain
+        return draw(key, step0, n_batches, self.config.batch_size, self._regions,
+                    self._lengths, self.cohort.num_donors, self.config.seq_length, digest)
 
     def draw_indices(
-        self, step: int, seed: int | None = None
+        self, step: int, key: KeyLike | None = None
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``(region_idx, donor_idx, chrom_idx)``, each ``(B,)`` int32, of
-        sampling step ``step``: a function of ``(seed, step)`` only, ``seed``
-        ``config.seed`` unless given."""
-        g = self.generator
-        g.manual_seed(_step_seed(self.config.seed if seed is None else seed, step))
-        B = self.config.batch_size
-        return tuple(
-            torch.randint(0, n, (B,), generator=g, device=self.device, dtype=torch.int32)
-            for n in self._draw_sizes
-        )
-
-    def chain_draws(self, seed: torch.Tensor, n_batches: int) -> tuple[torch.Tensor, ...]:
-        """The draws of one :meth:`sample_chain` link of ``n_batches``
-        batches from its ``(1,)`` int64 seed: :func:`counter_draws` of
-        ``n_batches * B`` lanes, batch ``i`` in lanes ``[i * B, (i + 1) * B)``."""
-        return counter_draws(seed, n_batches * self.config.batch_size, self._draw_sizes)
+        sampling step ``step`` of ``key`` (``PRNGKey(config.seed)`` unless
+        given): the JAX sampler's draws of that step, a function of the key
+        and the step only."""
+        d = self._draws(self._base_key if key is None else self._key(key), step, 1)
+        return d.region_idx, d.donor_idx, d.chrom_idx
 
     def window_starts(self, region_idx: torch.Tensor, chrom_idx: torch.Tensor) -> torch.Tensor:
         """(B,) int32 window starts: each region's midpoint crop, clamped so
         the window stays inside the drawn chromosome."""
-        L = self.config.seq_length
-        span = self._regions[region_idx.long()]  # (B, 2)
-        mid = (span[:, 0] + span[:, 1]) // 2
-        new_start = (mid - L // 2).clamp(min=0)
-        limit = (self._lengths[chrom_idx.long()] - L).clamp(min=0)
-        return torch.minimum(new_start, limit).to(torch.int32)
+        return window_starts(self._regions, self._lengths, region_idx, chrom_idx,
+                             self.config.seq_length)
 
-    def windows_from_draws(
-        self,
-        region_idx: torch.Tensor,
-        donor_idx: torch.Tensor,
-        chrom_idx: torch.Tensor,
-        kernel: str | None = None,
-    ) -> HaplotypeBatch:
-        """Crop (:meth:`window_starts`), encode and, with ``emit_onehot``,
-        one-hot the windows of the given draws.  ``kernel`` overrides the sampler's
-        ``"kernel"``/``"baseline"`` choice."""
+    def _encode(self, donor_idx, chrom_idx, start, kernel: str | None) -> HaplotypeBatch:
         L = self.config.seq_length
         K = self.config.max_variants_per_window
-        start = self.window_starts(region_idx, chrom_idx)
         kernel = kernel or self.kernel
         if kernel == "kernel":
             win = encode_windows_kernel(self.index, donor_idx, chrom_idx, start, L=L, K=K)
@@ -295,128 +261,164 @@ class DeviceHaplotypeSampler:
             hap1, hap2 = win.hap1, win.hap2  # the same tensors: no extra writes
         return HaplotypeBatch(hap1, hap2, win.hap1, win.hap2, win.n_variants, win.overflow)
 
-    def _first_step(self, n_steps: int, key: int | None) -> tuple[int, int]:
-        """``(seed, step)`` of a call of ``n_steps`` steps: ``(key, 0)`` with
-        a key, else ``(config.seed, step counter)``, advancing the counter."""
+    def windows_from_draws(
+        self,
+        region_idx: torch.Tensor,
+        donor_idx: torch.Tensor,
+        chrom_idx: torch.Tensor,
+        kernel: str | None = None,
+    ) -> HaplotypeBatch:
+        """Crop (:meth:`window_starts`), encode and, with ``emit_onehot``,
+        one-hot the windows of the given draws.  ``kernel`` overrides the sampler's
+        ``"kernel"``/``"baseline"`` choice."""
+        return self._encode(donor_idx, chrom_idx, self.window_starts(region_idx, chrom_idx),
+                            kernel)
+
+    def _first(self, n_steps: int, key: KeyLike | None) -> tuple[Key, int]:
+        """``(key, step)`` of a call of ``n_steps`` steps: ``(key, 0)`` with
+        a key, else ``(PRNGKey(config.seed), step counter)``, advancing the
+        counter."""
         if key is not None:
-            return key, 0
+            return self._key(key), 0
         step = self._step
         self._step += n_steps
-        return self.config.seed, step
+        return self._base_key, step
 
-    def sample(self, key: int | None = None) -> HaplotypeBatch:
+    def _batches(self, key: Key, step0: int, n_batches: int,
+                 kernel: str | None = None) -> HaplotypeBatch:
+        """Steps ``step0 .. step0 + n_batches - 1`` of ``key`` as one batch
+        of ``n_batches * B`` windows: one draw pass (which crops each window
+        too) and one encode pass."""
+        d = self._draws(key, step0, n_batches, kernel)
+        return self._encode(d.donor_idx, d.chrom_idx, d.start, kernel)
+
+    def batch_at(self, step: int, key: KeyLike | None = None,
+                 kernel: str | None = None) -> HaplotypeBatch:
+        """Sampling step ``step``'s batch of ``key`` (``PRNGKey(config.seed)``
+        unless given), leaving the step counter alone: what :meth:`sample`
+        gives at that step.  ``kernel`` overrides the sampler's
+        ``"kernel"``/``"baseline"`` choice."""
+        return self._batches(self._base_key if key is None else self._key(key), step, 1,
+                             kernel)
+
+    def sample(self, key: KeyLike | None = None) -> HaplotypeBatch:
         """Draw one batch.  Without ``key``, step ``_step`` of
-        ``config.seed``, advancing the step counter; with it, step 0 of
-        ``key``, leaving the counter alone (JAX's ``sample(key=)``)."""
-        seed, step = self._first_step(1, key)
-        return self.windows_from_draws(*self.draw_indices(step, seed))
+        ``PRNGKey(config.seed)``, advancing the step counter; with it, step 0
+        of ``key``, leaving the counter alone (JAX's ``sample(key=)``).
+        ``key`` is an int seed or a JAX key's two words."""
+        return self._batches(*self._first(1, key), 1)
 
-    def sample_many(self, n_batches: int, key: int | None = None) -> HaplotypeBatch:
+    def sample_many(self, n_batches: int, key: KeyLike | None = None) -> HaplotypeBatch:
         """``n_batches`` batches, leaves stacked ``(n_batches, B, ...)``:
         equal to ``n_batches`` successive :meth:`sample` calls (steps ``0 ..
-        n_batches - 1`` of ``key`` with a key), encoded in one pass (one
-        kernel launch) over all their windows."""
+        n_batches - 1`` of ``key`` with a key), drawn in one pass and encoded
+        in one pass (one launch each on the card) over all their windows."""
         if n_batches < 1:
             raise ValueError(f"n_batches must be >= 1, got {n_batches}")
-        seed, step0 = self._first_step(n_batches, key)
-        region_idx, donor_idx, chrom_idx = (
-            torch.cat(t)
-            for t in zip(*(self.draw_indices(s, seed) for s in range(step0, step0 + n_batches)))
-        )
-        return _stacked(self.windows_from_draws(region_idx, donor_idx, chrom_idx), n_batches)
+        return _stacked(self._batches(*self._first(n_batches, key), n_batches), n_batches)
 
-    def _chain_links(self, seed: torch.Tensor, n_chain: int, n_batches: int,
-                     kernel: str) -> ChainRun:
-        """The chain from its ``(1,)`` int64 first seed, in device ops only:
-        each link encodes :meth:`chain_draws` of its seed in one pass, and
-        the next seed is ``mix64(seed ^ digest * m)``, ``m`` odd, so every
-        digest bit changes it."""
-        seeds, digests = [], []
+    def _chain_links(self, key: Key, n_chain: int, n_batches: int, kernel: str) -> ChainRun:
+        """The chain from its first key, in device ops only: link ``k``
+        encodes steps ``0 .. n_batches - 1`` of its key in one pass, and link
+        ``k + 1``'s key is ``fold_in(key_k, digest_k)``, made inside its draws."""
+        keys, digests = [], []
         for _ in range(n_chain):
-            seeds.append(seed)
-            batch = _stacked(
-                self.windows_from_draws(*self.chain_draws(seed, n_batches), kernel=kernel),
-                n_batches,
-            )
+            d = self._draws(key, 0, n_batches, kernel, digests[-1] if digests else None)
+            keys.append(d.key)
+            batch = _stacked(self._encode(d.donor_idx, d.chrom_idx, d.start, kernel), n_batches)
             digests.append(chain_digest(batch))
-            seed = _mix64(seed ^ (digests[-1] * _DIGEST_MUL))
-        return ChainRun(torch.stack(digests).sum() & _MASK32, torch.cat(seeds), batch)
+            key = d.key
+        return ChainRun(torch.stack(digests).sum() & MASK32, torch.stack(keys), batch)
 
     def _chain_graph(self, n_chain: int, n_batches: int):
-        """``run(seed) -> ChainRun``: the chain captured once in one CUDA
+        """``run(key) -> ChainRun``: the chain captured once in one CUDA
         graph.  Each graph holds its own memory pool (the links' windows), so
         the sampler keeps only the last ``(n_chain, n_batches, emit_onehot)``
         graph: a call of another shape frees it and captures anew.  ``run``
-        writes the seed into the graph's input, replays it and returns the
+        writes the key into the graph's input, replays it and returns the
         graph's outputs, which the next replay overwrites.  A capture records
-        launches without running them, so the window kernel's count is set
-        back after it and advanced on every replay instead."""
+        launches without running them, so the kernels' counts are set back
+        after it and advanced on every replay instead."""
         shape = (n_chain, n_batches, self.emit_onehot)
         if self._chain_graph_cache is not None:
             if self._chain_graph_cache[0] == shape:
                 return self._chain_graph_cache[1]
             self._chain_graph_cache = None  # free the old pool before the capture
         dev = self.device
-        seed_in = torch.zeros(1, dtype=torch.int64, device=dev)
-        # warm up on a side stream: builds and loads the kernel before the capture
+        key_in = torch.zeros(2, dtype=torch.int64, device=dev)
+        # warm up on a side stream: builds and loads the kernels before the capture
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._chain_links(seed_in, n_chain, n_batches, "kernel")
+            self._chain_links(key_in, n_chain, n_batches, "kernel")
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = encode_windows_kernel.launches
+        counted = (encode_windows_kernel, draw_windows)
+        before = [k.launches for k in counted]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            out = self._chain_links(seed_in, n_chain, n_batches, "kernel")
-        per_replay = encode_windows_kernel.launches - before
-        encode_windows_kernel.launches = before
+            out = self._chain_links(key_in, n_chain, n_batches, "kernel")
+        per_replay = [k.launches - b for k, b in zip(counted, before)]
+        for k, b in zip(counted, before):
+            k.launches = b
 
-        def run(seed: int) -> ChainRun:
-            seed_in.fill_(seed)  # a fill kernel: no host round-trip
+        def run(key: Key) -> ChainRun:
+            if isinstance(key, torch.Tensor):
+                key_in.copy_(key)
+            else:  # two fill kernels: no host round-trip
+                key_in[0].fill_(key[0])
+                key_in[1].fill_(key[1])
             graph.replay()
-            encode_windows_kernel.launches += per_replay
+            for k, n in zip(counted, per_replay):
+                k.launches += n
             return out
 
         self._chain_graph_cache = (shape, run)
         return run
 
-    def _chain(self, n_chain: int, n_batches: int, key: int | None,
+    def _chain(self, n_chain: int, n_batches: int, key: KeyLike | None,
                kernel: str | None) -> ChainRun:
         """The chain's run.  On the graph path its tensors are the graph's
         outputs, which the next replay of that shape overwrites."""
         if n_chain < 1 or n_batches < 1:
             raise ValueError(f"n_chain and n_batches must be >= 1, got {n_chain}, {n_batches}")
-        seed, step = self._first_step(n_chain * n_batches, key)
-        first = _as_int64(_step_seed(seed, step))
+        if key is None:
+            # JAX's key-less chain starts from fold_in(base key, step counter),
+            # hashed in Python ints: nothing reaches the card
+            first = fold_in_words(self._base_key, self._step)
+            self._step += n_chain * n_batches
+        else:
+            first = self._key(key)
         kernel = kernel or self.kernel
         if self.device.type == "cuda" and kernel == "kernel":
             return self._chain_graph(n_chain, n_batches)(first)
-        seed_t = torch.tensor([first], dtype=torch.int64, device=self.device)
-        return self._chain_links(seed_t, n_chain, n_batches, kernel)
+        return self._chain_links(first, n_chain, n_batches, kernel)
 
-    def chain_run(self, n_chain: int, n_batches: int, key: int | None = None,
+    def chain_run(self, n_chain: int, n_batches: int, key: KeyLike | None = None,
                   kernel: str | None = None) -> ChainRun:
         """:meth:`sample_chain`'s whole run, in tensors of its own: the
-        digest, each link's seed and the last link's batch.  ``kernel``
+        digest, each link's key and the last link's batch.  ``kernel``
         overrides the sampler's choice: ``"kernel"`` on the card replays the
         chain's CUDA graph (a failed capture raises); ``"baseline"``, and any
-        CPU sampler, run the same links eagerly."""
+        CPU sampler, run the same links eagerly (``"baseline"`` through the
+        plain versions of the draws and the encode)."""
         run = self._chain(n_chain, n_batches, key, kernel)
         last = run.last
         c1, c2 = last.hap1_codes.clone(), last.hap2_codes.clone()
         h1, h2 = (c1, c2) if last.hap1 is last.hap1_codes else (last.hap1.clone(), last.hap2.clone())
-        return ChainRun(run.digest.clone(), run.seeds.clone(), HaplotypeBatch(
+        return ChainRun(run.digest.clone(), run.keys.clone(), HaplotypeBatch(
             h1, h2, c1, c2, last.n_variants.clone(), last.overflow.clone()))
 
-    def sample_chain(self, n_chain: int, n_batches: int, key: int | None = None) -> torch.Tensor:
+    def sample_chain(self, n_chain: int, n_batches: int, key: KeyLike | None = None) -> torch.Tensor:
         """() int64: the sum, mod 2^32, of the :func:`chain_digest` of
-        ``n_chain`` dependent links of ``n_batches`` batches each (one
-        encode of ``n_batches * B`` windows a link, as :meth:`sample_many`).
-        Link ``k + 1``'s seed mixes in link ``k``'s digest, so no link can be
-        skipped or reordered, and fetching the result proves the chain ran.
-        The first seed comes from ``(key, 0)``, or from ``(config.seed,
-        step counter)``, which then advances by ``n_chain * n_batches``.  On
-        the card, one replay of a CUDA graph (:meth:`chain_run`)."""
+        ``n_chain`` dependent links of ``n_batches`` batches each (one draw
+        and one encode of ``n_batches * B`` windows a link, as
+        :meth:`sample_many`), equal to the JAX package's ``sample_chain``.
+        Link 0 is ``sample_many(n_batches, key=key)``; link ``k + 1`` draws
+        under ``fold_in(key_k, digest_k)``, so no link can be skipped or
+        reordered, and fetching the result proves the chain ran.  Without a
+        key the first is ``fold_in(PRNGKey(config.seed), step counter)``,
+        and the counter advances by ``n_chain * n_batches``.  On the card,
+        one replay of a CUDA graph (:meth:`chain_run`)."""
         return self._chain(n_chain, n_batches, key, None).digest.clone()
 
     def __iter__(self):

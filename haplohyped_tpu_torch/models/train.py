@@ -148,14 +148,15 @@ def make_train_step(mesh: DeviceMesh | None = None):
 
 
 def make_fused_train_step(sampler, mesh: DeviceMesh | None = None):
-    """``fused(state, step_idx) -> (state, metrics)``: draw sampling step
-    ``step_idx``'s batch on the device (the window kernel in codes mode on
-    CUDA) and take one train step on it; equal to the batch
+    """``fused(state, step_idx) -> (state, metrics)``: build sampling step
+    ``step_idx``'s batch on the device (``sampler.batch_at``: on CUDA one
+    draw-kernel launch, which crops the windows too, and the window kernel in
+    codes mode) and take one train step on it; equal to the batch
     ``sampler.sample()`` gives at that step followed by the train step.
     With ``mesh`` every rank draws the global batch and trains on its block."""
 
     def fused(state: TrainState, step_idx: int):
-        b = sampler.windows_from_draws(*sampler.draw_indices(step_idx))
+        b = sampler.batch_at(step_idx)
         return _train_step(state, b.hap1, b.hap2, b.n_variants, mesh)
 
     return fused

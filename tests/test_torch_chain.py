@@ -1,10 +1,11 @@
 """``DeviceHaplotypeSampler.sample_chain`` and the sampler's ``key=`` in the
 PyTorch port, against the JAX package and against a loop written here.
 
-The chain's draws are the port's own (counter-based, so the card can replay
-them in a CUDA graph), so only the digest is held against the JAX package:
-``chain_digest`` of the JAX sampler's own windows must equal the JAX chain's
-result (tolerance 0).  Every other check is exact too.
+The chain draws the JAX package's stream: link 0 is ``sample_many(n,
+key=k)`` and link ``k + 1`` draws under ``fold_in(key_k, digest_k)``.  So
+its digest must equal the JAX package's ``sample_chain`` for the same key
+(or seed and step), and its links' keys the ones ``jax.random`` makes in a
+loop written here (tolerance 0).  Every other check is exact too.
 """
 
 import jax
@@ -12,39 +13,18 @@ import numpy as np
 import pytest
 import torch
 
-from haplohyped_tpu_torch.data.sampler import (
-    HaplotypeBatch,
-    _step_seed,
-    chain_digest,
-    counter_draws,
-)
+from haplohyped_tpu_torch.data.sampler import HaplotypeBatch, chain_digest
+from haplohyped_tpu_torch.ops.draw_kernel import draw_windows
 from haplohyped_tpu_torch.ops.window_kernel import encode_windows_kernel
 
 from tests.test_torch_sampler import BATCH_FIELDS, both_samplers
 
-M64, M32 = (1 << 64) - 1, (1 << 32) - 1
-GOLDEN, DIGEST_MUL = 0x9E3779B97F4A7C15, 0xD1B54A32D192ED03
+M32 = (1 << 32) - 1
 CFG = dict(seq_length=128, batch_size=6, seed=4, max_variants_per_window=16)
 
 
-def mix64(z: int) -> int:
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & M64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & M64
-    return z ^ (z >> 31)
-
-
-def signed(x: int) -> int:
-    return x - (1 << 64) if x >> 63 else x
-
-
-def host_draws(seed: int, n: int, sizes) -> list[list[int]]:
-    """The counter draws as Python ints: output ``i * F + f`` of splitmix64
-    from ``seed``, reduced from its high 32 bits."""
-    F = len(sizes)
-    return [
-        [((mix64((seed + (i * F + f + 1) * GOLDEN) & M64) >> 32) * size) >> 32 for i in range(n)]
-        for f, size in enumerate(sizes)
-    ]
+def key_words(key) -> list[int]:
+    return np.asarray(key).astype(np.int64).tolist()
 
 
 def host_digest(b) -> int:
@@ -93,42 +73,73 @@ def test_digest_reads_every_leaf():
     assert int(chain_digest(b._replace(n_variants=nv))) == d ^ old ^ (old + 5)
 
 
-def test_counter_draws_match_splitmix64_on_the_host():
-    sizes = (100_000, 128, 12)
-    for seed in (0, 1, 0xDEADBEEFCAFEBABE, M64):
-        got = counter_draws(torch.tensor([signed(seed)]), 257, sizes)
-        assert all(g.dtype == torch.int32 and g.is_contiguous() for g in got)
-        assert [g.tolist() for g in got] == host_draws(seed, 257, sizes)
-    # the draws spread over every value of a small range
-    few = counter_draws(torch.tensor([5]), 4000, (12,))[0]
-    assert sorted(set(few.tolist())) == list(range(12))
-
-
 @pytest.mark.parametrize("emit_onehot", [False, True])
 def test_chain_equals_a_loop_written_here(emit_onehot):
-    """The chain against ``windows_from_draws`` of each link's draws, the
-    digests taken in numpy and the seeds mixed in Python ints."""
-    _, ps = both_samplers(CFG, emit_onehot=emit_onehot)
-    n_chain, n_batches, key = 4, 3, 99
+    """The chain against ``windows_from_draws`` of each link's JAX draws
+    (steps ``0 .. n - 1`` of the link's key), the digests taken in numpy and
+    the next key made by ``jax.random.fold_in``."""
+    js, ps = both_samplers(CFG, emit_onehot=emit_onehot)
+    n_chain, n_batches = 4, 3
     sizes = (ps._regions.shape[0], ps.cohort.num_donors, len(ps.genome.chrom_names))
-    seed, total, seeds = _step_seed(key, 0), 0, []
+    key, total, keys = jax.random.PRNGKey(99), 0, []
     for _ in range(n_chain):
-        seeds.append(signed(seed))
-        draws = host_draws(seed, n_batches * CFG["batch_size"], sizes)
-        b = ps.windows_from_draws(*(torch.tensor(d, dtype=torch.int32) for d in draws))
+        keys.append(key_words(key))
+        draws = [jax_draws_of_key(key, s, *sizes, CFG["batch_size"]) for s in range(n_batches)]
+        b = ps.windows_from_draws(*(torch.cat(t) for t in zip(*draws)))
         d = host_digest(b)
         total = (total + d) & M32
-        seed = mix64(seed ^ ((d * DIGEST_MUL) & M64))
-    run = ps.chain_run(n_chain, n_batches, key=key)
+        key = jax.random.fold_in(key, np.uint32(d))
+    run = ps.chain_run(n_chain, n_batches, key=99)
     assert run.digest.dtype == torch.int64 and run.digest.shape == ()
-    assert int(run.digest) == total
-    assert run.seeds.tolist() == seeds
+    assert int(run.digest) == total == int(np.asarray(js.sample_chain(n_chain, n_batches,
+                                                                      key=jax.random.PRNGKey(99))))
+    assert run.keys.dtype == torch.int64 and run.keys.tolist() == keys
     for name in BATCH_FIELDS:
         want = getattr(b, name)
         assert torch.equal(getattr(run.last, name), want.view(n_batches, -1, *want.shape[1:])), name
     assert (run.last.hap1 is run.last.hap1_codes) == (not emit_onehot)
-    assert int(ps.sample_chain(n_chain, n_batches, key=key)) == total
+    assert int(ps.sample_chain(n_chain, n_batches, key=99)) == total
     assert ps._step == 0
+
+
+def jax_draws_of_key(key, step, R, D, C, B):
+    """The JAX sampler's draws of step ``step`` of ``key``."""
+    kr, kd, kc = jax.random.split(jax.random.fold_in(key, step), 3)
+    return tuple(
+        torch.from_numpy(np.array(jax.random.randint(k, (B,), 0, n), dtype=np.int32))
+        for k, n in ((kr, R), (kd, D), (kc, C))
+    )
+
+
+@pytest.mark.parametrize("emit_onehot", [False, True])
+@pytest.mark.parametrize("keyed", [True, False])
+def test_chain_digest_equals_jax_sample_chain(emit_onehot, keyed):
+    """Keyed: the same key on both sides.  Key-less: both start from
+    ``fold_in(PRNGKey(seed), step counter)`` after a ``sample()``, and both
+    counters advance alike."""
+    js, ps = both_samplers(CFG, emit_onehot=emit_onehot)
+    if keyed:
+        jkey = jax.random.fold_in(jax.random.PRNGKey(31), 2)
+        got = ps.sample_chain(3, 2, key=np.asarray(jkey))
+        want = js.sample_chain(3, 2, key=jkey)
+    else:
+        ps.sample(), js.sample()
+        got, want = ps.sample_chain(3, 2), js.sample_chain(3, 2)
+        assert ps._step == js._step == 7
+        assert int(ps.sample_chain(2, 2)) == int(np.asarray(js.sample_chain(2, 2)))
+    assert int(got) == int(np.asarray(want))
+
+
+@pytest.mark.parametrize("emit_onehot", [False, True])
+def test_chain_link_zero_is_sample_many_of_the_key(emit_onehot):
+    _, ps = both_samplers(CFG, emit_onehot=emit_onehot)
+    run = ps.chain_run(3, 4, key=13)
+    first = ps.chain_run(1, 4, key=13)
+    many = ps.sample_many(4, key=13)
+    assert run.keys[0].tolist() == key_words(jax.random.PRNGKey(13))
+    for name in BATCH_FIELDS:
+        assert torch.equal(getattr(first.last, name), getattr(many, name)), name
+    assert int(first.digest) == int(chain_digest(many))
 
 
 def test_chain_is_deterministic_for_a_key_and_changes_with_it():
@@ -137,9 +148,9 @@ def test_chain_is_deterministic_for_a_key_and_changes_with_it():
     digests = {k: int(a.sample_chain(3, 2, key=k)) for k in (1, 2, 3)}
     assert digests[1] == int(b.sample_chain(3, 2, key=1)) == int(a.sample_chain(3, 2, key=1))
     assert len(set(digests.values())) == 3
-    # a link's seed depends on every link before it
-    s1, s2 = a.chain_run(3, 2, key=1).seeds, a.chain_run(3, 2, key=2).seeds
-    assert not torch.equal(s1, s2) and len(set(s1.tolist())) == 3
+    # a link's key depends on every link before it
+    k1, k2 = a.chain_run(3, 2, key=1).keys, a.chain_run(3, 2, key=2).keys
+    assert not torch.equal(k1, k2) and len(set(map(tuple, k1.tolist()))) == 3
 
 
 def test_keyless_chain_advances_the_step():
@@ -147,7 +158,8 @@ def test_keyless_chain_advances_the_step():
     _, b = both_samplers(CFG)
     first = int(a.sample_chain(2, 3))
     assert a._step == 6
-    assert first == int(b.sample_chain(2, 3, key=CFG["seed"])) and b._step == 0
+    start = jax.random.fold_in(jax.random.PRNGKey(CFG["seed"]), 0)
+    assert first == int(b.sample_chain(2, 3, key=key_words(start))) and b._step == 0
     second = int(a.sample_chain(2, 3))
     assert a._step == 12 and second != first
     # the counter it advances is the one sample() reads
@@ -191,16 +203,14 @@ def test_graph_chain_equals_the_eager_plain_chain_on_card(card, emit_onehot):
                     emit_onehot=emit_onehot, device=card)
     want = gpu.chain_run(3, 4, key=5, kernel="baseline")
     gpu.chain_run(3, 4, key=5)  # warms up and captures the graph
-    before = encode_windows_kernel.launches
+    before = encode_windows_kernel.launches, draw_windows.launches
     got = gpu.chain_run(3, 4, key=5)
-    assert encode_windows_kernel.launches - before == 3
+    assert (encode_windows_kernel.launches - before[0], draw_windows.launches - before[1]) == (3, 3)
     assert int(got.digest) == int(want.digest) == int(cpu.sample_chain(3, 4, key=5))
-    assert torch.equal(got.seeds.cpu(), want.seeds.cpu())
+    assert torch.equal(got.keys.cpu(), want.keys.cpu())
+    assert torch.equal(got.keys.cpu(), cpu.chain_run(3, 4, key=5).keys)
     for name in BATCH_FIELDS:
         assert torch.equal(getattr(got.last, name).cpu(), getattr(want.last, name).cpu()), name
-    seed = torch.tensor([123456789])
-    assert all(torch.equal(g.cpu(), c) for g, c in zip(
-        gpu.chain_draws(seed.to(card), 4), cpu.chain_draws(seed, 4)))
     gpu.chain_run(2, 4, key=5)  # another shape: only its graph is kept
     assert gpu._chain_graph_cache[0] == (2, 4, emit_onehot)
     assert int(gpu.chain_run(3, 4, key=5).digest) == int(want.digest)

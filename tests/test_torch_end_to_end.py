@@ -5,7 +5,8 @@ the port's cohort HDF5 and reference HDF5 -> the port's ``from_files`` ->
 
 Where the JAX package is the yardstick the check is exact: the files equal
 dataset by dataset (dtype, shape, chunks, filters, stored chunk bytes and
-values), the sampler's windows bit-equal on the JAX sampler's own draws.
+values), the sampler's windows bit-equal on the JAX sampler's own draws and
+its own.
 """
 
 import h5py
@@ -109,7 +110,9 @@ def test_from_files_on_port_files_equals_jax(files):
     ps = port_sampler(files)
     for step in range(3):
         got = ps.windows_from_draws(*port_draws_of_jax(js, SAMPLER["seed"], step))
-        assert_batch_equal(got, js.sample())
+        want = js.sample()
+        assert_batch_equal(got, want)
+        assert_batch_equal(ps.sample(), want)  # the port's own draws
     assert int(got.n_variants.sum()) > 0
 
 

@@ -43,6 +43,7 @@ def test_importing_every_module_leaves_jax_out():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.splitlines()[-1])
     for name in ("data.sampler", "ops.window_kernel", "ops.decode_kernel", "ops.vcf_decode",
+                 "ops.threefry", "ops.draw_kernel",
                  "hostio.native", "hostio.vcf", "hostio.tabix", "hostio.bcf",
                  "pipeline.vcf_to_h5", "storage.fastwrite",
                  "ops.window_lab", "tools.window_kernel_lab", "models.haploformer",

@@ -1,10 +1,12 @@
 """Sampler of the PyTorch port against the JAX package.
 
-The two packages draw from different generators, so the test recomputes the
-JAX sampler's own draws (``fold_in(PRNGKey(seed), step)``, ``split(key, 3)``,
-``randint``, as ``haplohyped_tpu/data/sampler.py`` does) and feeds them to the
-port's ``windows_from_draws``.  The batch must be bit-equal (tolerance 0) to
-``DeviceHaplotypeSampler.sample()`` of the JAX package on the same state.
+Both packages draw the same ``jax.random`` stream, so for one seed and state
+the port's ``sample()``, ``sample_many(n)``, ``sample(key=)`` and
+``sample_many(n, key=)`` must be bit-equal (tolerance 0) to the JAX
+sampler's, through the port's own ``draw_indices``.  Other tests recompute the
+JAX sampler's draws (``fold_in(PRNGKey(seed), step)``, ``split(key, 3)``,
+``randint``, as ``haplohyped_tpu/data/sampler.py`` does) and feed them to the
+port's ``windows_from_draws``, which holds the encode alone against JAX.
 """
 
 import numpy as np
@@ -240,3 +242,73 @@ def test_from_files_matches_jax(tmp_path):
     assert_batch_equal(got, js.sample())
     assert int(got.n_variants.sum()) > 0
     assert encode_windows_kernel.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the port's own draws against the JAX sampler's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernel", ["baseline", "kernel"])
+@pytest.mark.parametrize("emit_onehot", [False, True])
+def test_samples_bit_equal_to_jax(kernel, emit_onehot):
+    """Three ``sample()`` calls, then ``sample_many(4)`` (steps 3-6)."""
+    cfg = dict(seq_length=256, batch_size=8, seed=5, max_variants_per_window=32)
+    js, ps = both_samplers(cfg, port_kernel=kernel, emit_onehot=emit_onehot)
+    for _ in range(3):
+        assert_batch_equal(ps.sample(), js.sample())
+    assert_batch_equal(ps.sample_many(4), js.sample_many(4))
+    assert ps._step == js._step == 7
+
+
+@pytest.mark.parametrize("as_key", ["int", "jax", "tensor", "list"])
+def test_keyed_samples_bit_equal_to_jax(as_key):
+    """``sample(key=)`` and ``sample_many(n, key=)``: step 0 on of the key,
+    the counter left alone.  An int is ``PRNGKey(int)``; a JAX key's two
+    words may come as its array, a tensor or a list."""
+    cfg = dict(seq_length=128, batch_size=6, seed=2, max_variants_per_window=16)
+    js, ps = both_samplers(cfg)
+    jkey = jax.random.fold_in(jax.random.PRNGKey(77), 3)
+    words = np.asarray(jkey)
+    key = {"int": 77, "jax": jkey, "tensor": torch.from_numpy(words.astype(np.int64)),
+           "list": words.tolist()}[as_key]
+    want_key = jax.random.PRNGKey(77) if as_key == "int" else jkey
+    assert_batch_equal(ps.sample(key=key), js.sample(key=want_key))
+    assert_batch_equal(ps.sample_many(3, key=key), js.sample_many(3, key=want_key))
+    assert ps._step == js._step == 0
+
+
+@pytest.mark.parametrize("kernel", [None, "baseline", "kernel"])
+def test_batch_at_bit_equal_to_jax(kernel):
+    """``batch_at(s)``, the batch ``sample()`` and the fused step build at
+    step ``s``, leaves the counter alone; with a key it is step ``s`` of
+    that key."""
+    cfg = dict(seq_length=128, batch_size=6, seed=4, max_variants_per_window=16)
+    js, ps = both_samplers(cfg)
+    for step in range(3):
+        assert_batch_equal(ps.batch_at(step, kernel=kernel), js.sample())
+    assert_batch_equal(ps.batch_at(0, key=77, kernel=kernel),
+                       js.sample(key=jax.random.PRNGKey(77)))
+    assert ps._step == 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 42, 2**31 - 1, 2**32 + 5, -3])
+def test_draw_indices_equal_jax_draws(seed):
+    """Seeds outside int32 follow ``PRNGKey``: JAX keeps the low 32 bits."""
+    cfg = dict(seq_length=64, batch_size=32, seed=seed)
+    js, ps = both_samplers(cfg)
+    for step in (0, 9, 2**31 - 1):
+        got = ps.draw_indices(step)
+        want = port_draws_of_jax(js, seed, step)
+        assert all(g.dtype == torch.int32 for g in got)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), step
+
+
+def test_bad_keys_raise():
+    _, ps = both_samplers(dict(seq_length=64, batch_size=2))
+    for key in ([1, 2, 3], np.zeros((2, 2), np.uint32), torch.zeros(2), [1.5, 2.0]):
+        with pytest.raises(ValueError, match="key"):
+            ps.sample(key=key)
+    with pytest.raises(OverflowError, match="int64"):
+        ps.sample(key=2**64)
+    with pytest.raises(OverflowError, match="int32"):
+        ps.draw_indices(2**31)

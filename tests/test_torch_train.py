@@ -17,7 +17,11 @@ order of sums differs):
   cancel; the key biases, whose gradient is round-off, may move by up to
   ``lr`` a step either way.
 
-The fused step, checkpoint resume and the carry-across are bit-equal.
+The fused step, checkpoint resume and the carry-across are bit-equal.  The
+port's sampler draws the JAX package's stream, so the fused step's batch at
+step ``s`` is bit-equal to the JAX package's ``_sample_batch(base_key, s)``,
+and the fused step and ``train_on_sampler`` from flax's params carried over
+by ``convert`` report metrics within the loss's ``1e-5`` of JAX's.
 """
 
 import math
@@ -31,6 +35,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from haplohyped_tpu.data.sampler import _sample_batch
 from haplohyped_tpu.models import train as jax_train
 from haplohyped_tpu.models.haploformer import HaploFormer as JaxHaploFormer
 from haplohyped_tpu.models.haploformer import HaploFormerConfig as JaxConfig
@@ -233,3 +238,86 @@ def test_create_train_state_without_a_card_raises():
     x = torch.zeros((2, 128), dtype=torch.int8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.create_train_state(SMALL, (x, x))
+
+
+# ---------------------------------------------------------------------------
+# the fused step and train_on_sampler against the JAX package's
+# ---------------------------------------------------------------------------
+
+SAMPLED = dict(seq_length=128, batch_size=B, seed=3, max_variants_per_window=16)
+
+
+def flax_params(L: int):
+    """flax's params of the ``WIDTHS`` model for windows of length L, from
+    ``PRNGKey(0)`` as the JAX package's ``train_on_sampler`` makes them (init
+    reads the inputs' shapes only)."""
+    x = np.zeros((B, L), np.int8)
+    return JaxHaploFormer(JaxConfig(**WIDTHS)).init(jax.random.PRNGKey(0), x, x)["params"]
+
+
+def jax_batch(js, step: int):
+    """The JAX package's fused-step batch at ``step``."""
+    _, _, lengths = js._genome_dev
+    cfg = js.config
+    return _sample_batch(
+        js._base_key, step, lengths, js._regions_dev, js._enc, L=cfg.seq_length,
+        K=cfg.max_variants_per_window, B=cfg.batch_size, D=js.cohort.num_donors,
+        num_channels=js.num_channels, onehot_dtype=js.onehot_dtype, emit_onehot=js.emit_onehot,
+        kernel=js.kernel, interpret=js._interpret)
+
+
+def test_fused_step_trains_on_jax_sample_batch(monkeypatch):
+    from tests.test_torch_sampler import both_samplers
+
+    js, ps = both_samplers(SAMPLED)
+    params = flax_params(SAMPLED["seq_length"])
+    jm, tx = JaxHaploFormer(JaxConfig(**WIDTHS)), optax.adamw(LR)
+    jstate = jax_train.TrainState(params, tx.init(params), jnp.zeros((), jnp.int32))
+    jfused = jax_train.make_fused_train_step(jm, tx, js)
+    x = torch.zeros((B, SAMPLED["seq_length"]), dtype=torch.int8)
+    state = train.create_train_state(HaploFormerConfig(**WIDTHS), (x, x), learning_rate=LR,
+                                     device="cpu")
+    state.model.load_state_dict(convert.params_from_flax(jax.device_get(params)))
+    seen = []
+    inner = train._train_step
+
+    def spy(state, hap1, hap2, n_variants, mesh=None):
+        seen.append((hap1, hap2, n_variants))
+        return inner(state, hap1, hap2, n_variants, mesh)
+
+    monkeypatch.setattr(train, "_train_step", spy)
+    fused = train.make_fused_train_step(ps)
+    for s in (0, 5, 6):
+        jstate, jm_ = jfused(jstate, jnp.int32(s))
+        state, m = fused(state, s)
+        want = jax_batch(js, jnp.int32(s))
+        for got, name in zip(seen[-1], ("hap1", "hap2", "n_variants")):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(getattr(want, name)),
+                                          err_msg=f"step {s} {name}")
+        for k in m:
+            np.testing.assert_allclose(float(m[k]), float(jm_[k]), rtol=1e-5, err_msg=k)
+    assert js._step == ps._step == 0  # the fused step reads no counter
+
+
+def test_train_on_sampler_matches_jax(monkeypatch):
+    """Three steps from flax's params (carried over by ``convert``): every
+    step's loss within ``1e-5``, and the sampler's counter where JAX's is."""
+    from tests.test_torch_sampler import both_samplers
+
+    js, ps = both_samplers(SAMPLED)
+    params = flax_params(SAMPLED["seq_length"])
+    make = train.create_train_state
+
+    def from_flax(*args, **kwargs):
+        state = make(*args, **kwargs)
+        state.model.load_state_dict(convert.params_from_flax(jax.device_get(params)))
+        return state
+
+    monkeypatch.setattr(train, "create_train_state", from_flax)
+    jstate, jlosses = jax_train.train_on_sampler(js, JaxHaploFormer(JaxConfig(**WIDTHS)), steps=3,
+                                                 learning_rate=LR, log_every=1)
+    state, losses = train_on_sampler(ps, HaploFormerConfig(**WIDTHS), steps=3, learning_rate=LR,
+                                     log_every=1)
+    assert len(losses) == len(jlosses) == 3
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+    assert state.step == int(jstate.step) == 3 and ps._step == js._step == 4
