@@ -19,9 +19,13 @@ Phases (any failure exits non-zero; nothing is caught):
    plain PyTorch versions of the draws (``ops/threefry.py``) and the encode.
    The draw kernel is held bit-equal to its plain version at the main path's
    64, 1,024 and 16,384 lanes for several keys and steps, with a key held on
-   the card and with a chain link's digest; and the sampler's draws of one
-   step, and one ``fold_in`` of a digest, to ``JAX_DRAWS``, which the JAX
-   package computed (the card's machine has no JAX).
+   the card and with a chain link's digest; at odd batch sizes B in {1, 3,
+   65, 100, 257}, whose lanes cross and do not fill the kernel's 64-lane
+   blocks; and at sizes R in {1, 65,536, 65,537} (both sides of where
+   randint's multiplier wraps to 0) over synthetic regions, with a key on
+   the card and a digest; and the sampler's draws of one step, and one
+   ``fold_in`` of a digest, to ``JAX_DRAWS``, which the JAX package computed
+   (the card's machine has no JAX).
 4. Edge fixtures, kernel against plain, bit-equal: empty rows, a row that
    overflows K, duplicate positions, windows crossing coarse-grid buckets, a
    window clamped at the genome's end, starts and ends on the bucket
@@ -41,9 +45,9 @@ Phases (any failure exits non-zero; nothing is caught):
    ways), ``sample_many`` windows/s and ``sample()`` ms (host clock), and a
    ``torch.profiler`` trace of ``sample_many``.  The draw kernel at 64, 1,024
    and 16,384 lanes on fresh keys: back to back behind a sleep kernel (CUDA
-   events) and from the profiler, the wrapper's host time, the plain
-   version's device (profiler) and host time, and its bound (int32 work at
-   64 lanes an SM, or bytes).
+   events), from the profiler and in a CUDA graph, the wrapper's host time,
+   the plain version's device (profiler) and host time, and its bound (the
+   int32 work the draws need at 64 lanes an SM, or bytes).
 7. Converter input from ``--seed``, under the git-ignored build directory: a
    BGZF chr1 cohort VCF of 6,468,094 records (1000 Genomes Phase 3 chr1)
    over GRCh38 chr1's length, 8 samples, with SNVs, indels, multi-allelic
@@ -189,7 +193,9 @@ Phases (any failure exits non-zero; nothing is caught):
    fetch (median of 12, host clock) and device-resident windows/s, in turns
    with ``sample_many(16)``; its device ms a call and a link (CUDA events);
    the window kernel and the draw kernel at a link's B = 16,384 (CUDA
-   events) beside their bounds.  At that timed shape too, the
+   events) beside their bounds, and a link split by CUDA events over CUDA
+   graphs of one piece each: the draw kernel, the window kernel and
+   ``chain_digest``.  At that timed shape too, the
    graph's ``chain_run(16, 256, key=k)`` equal to the eager plain chain
    (digest, keys, the last link's 16,384 windows) and two of the timed
    B = 16,384 launches bit-equal to the plain version.
@@ -279,7 +285,12 @@ from haplohyped_tpu_torch.ops.pack import (
     pack_2bit_device,
     unpack_2bit_device,
 )
-from haplohyped_tpu_torch.ops.threefry import MASK32, fold_in_words, prng_key
+from haplohyped_tpu_torch.ops.threefry import (
+    MASK32,
+    fold_in_words,
+    prng_key,
+    randint_multiplier,
+)
 from haplohyped_tpu_torch.ops.vcf_decode import (
     decode_frames,
     decode_frames12_packed,
@@ -609,9 +620,19 @@ DRAW_BATCHES = (1, 16, 256)
 #: the first injection (2 adds), 20 rounds of add, rotate and xor, and 5
 #: injections of 3 adds
 THREEFRY_OPS = 2 + 2 + 20 * 3 + 5 * 3
-#: int32 operations a lane beyond its hashes: 3 randint reductions (2 xors,
-#: 3 remainders, a product and an add each) and the crop (8)
-DRAW_LANE_OPS = 3 * 7 + 8
+#: int32 operations of a remainder by a size fixed for the launch, as the
+#: kernel issues it: a multiply-high, a 64-bit add (2), a shift and a
+#: multiply-subtract
+REMAINDER_OPS = 5
+#: int32 operations of the crop a lane
+CROP_OPS = 8
+#: odd batch sizes of phase 3's checks (n_batches, B): lanes that cross and
+#: do not fill the kernel's 64-lane blocks, a block over many batches (B=1)
+#: and a batch over many blocks
+DRAW_ODD_BATCHES = ((150, 1), (11, 3), (3, 65), (5, 100), (2, 257))
+#: region counts of phase 3's checks: one, and both sides of 2^16, where
+#: randint's multiplier wraps to 0
+DRAW_SPANS = (1, 65_536, 65_537)
 #: H100 SXM int32 rate: 64 INT32 lanes an SM x 132 SMs x 1.98 GHz (the
 #: table's 67 TFLOP/s float32 is 128 lanes x 2 for a fused multiply-add)
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -622,15 +643,35 @@ def draw_args(sampler) -> tuple:
     return sampler._regions, sampler._lengths, sampler.cohort.num_donors, SEQ_LENGTH
 
 
-def draw_bound(draws) -> tuple[float, str]:
-    """``(ms, "bytes" or "operations")``: the least time of one draw call,
-    the larger of its int32 work over INT32_OPS_PER_S (the function needs 6
-    hashes a lane and 10 a batch, whatever the kernel repeats) and its bytes
-    over HBM_BYTES_PER_S (4 int32 stores a lane, the key, and each region
-    span and chromosome length the draws name, read once)."""
+def draw_sizes(sampler) -> tuple[int, int, int]:
+    """The draws' sizes (R, D, C)."""
+    regions, lengths, D, _ = draw_args(sampler)
+    return regions.shape[0], D, lengths.shape[0]
+
+
+def draw_lane_ops(sizes) -> int:
+    """int32 operations one lane's draws need at sizes (R, D, C) beyond the
+    batch's keys: a field needs the hash and xor of ``l`` and one remainder
+    where randint's multiplier is 0, else ``h`` too, three remainders, a
+    product and an add; then the crop."""
+    ops = CROP_OPS
+    for s in sizes:
+        if randint_multiplier(s):
+            ops += 2 * (THREEFRY_OPS + 1) + 3 * REMAINDER_OPS + 2
+        else:
+            ops += THREEFRY_OPS + 1 + REMAINDER_OPS
+    return ops
+
+
+def draw_bound(draws, sizes) -> tuple[float, str]:
+    """``(ms, "bytes" or "operations")``: the least time of one draw call at
+    sizes (R, D, C), the larger of its int32 work over INT32_OPS_PER_S
+    (:func:`draw_lane_ops` a lane and 10 hashes a batch, whatever the kernel
+    repeats) and its bytes over HBM_BYTES_PER_S (4 int32 stores a lane, the
+    key, and each region span and chromosome length the draws name, read
+    once)."""
     lanes = draws.start.numel()
-    ops = (lanes * (6 * THREEFRY_OPS + DRAW_LANE_OPS)
-           + lanes // BATCH * 10 * THREEFRY_OPS)
+    ops = lanes * draw_lane_ops(sizes) + lanes // BATCH * 10 * THREEFRY_OPS
     nbytes = (16 * lanes + 16 + 8 * torch.unique(draws.region_idx).numel()
               + 4 * torch.unique(draws.chrom_idx).numel())
     t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
@@ -640,9 +681,10 @@ def draw_bound(draws) -> tuple[float, str]:
 def draw_checks(sampler, seed: int, cmp: Comparisons) -> int:
     """Phase 3's draw checks: the kernel bit-equal to ``draws_plain`` at
     every ``DRAW_BATCHES`` shape for several keys and steps, with a key the
-    card holds and with a chain link's digest; the sampler's draws of
-    ``JAX_DRAWS``' step equal to the JAX package's.  Returns the lanes
-    compared."""
+    card holds and with a chain link's digest; at each ``DRAW_ODD_BATCHES``
+    shape and each ``DRAW_SPANS`` region count the same way; the sampler's
+    draws of ``JAX_DRAWS``' step equal to the JAX package's.  Returns the
+    lanes compared."""
     dev, args = sampler.device, draw_args(sampler)
     keys = [(0, 0), prng_key(seed), (MASK32, 0x12345678), ((seed * 2654435761) & MASK32, 7)]
     steps = (0, 1, 123_457, 2**31 - 300, -5)
@@ -661,8 +703,23 @@ def draw_checks(sampler, seed: int, cmp: Comparisons) -> int:
                         draws_plain(on_card, 0, n, BATCH, *args, digest=d),
                         f"draw kernel, a key on the card, digest {d is not None}, x{n}")
             lanes += 2 * n * BATCH
+    regions, lengths, D, L = args
+    spans = torch.arange(max(DRAW_SPANS), dtype=torch.int32, device=dev) * 7919
+    synthetic = torch.stack([spans - 2**28, spans + 1000], dim=1)  # a quarter of midpoints < 0
+    shapes = [(n, B, regions) for n, B in DRAW_ODD_BATCHES]
+    shapes += [(16, BATCH, synthetic[:R]) for R in DRAW_SPANS]
+    for n, B, reg in shapes:
+        shape, what = (n, B, reg, lengths, D, L), f"x{n} B={B} R={reg.shape[0]}"
+        for key, step in ((prng_key(seed), 3), ((MASK32, 0x12345678), 2**31 - 2)):
+            got = draw_windows(key, step, *shape)
+            cmp.windows(got, draws_plain(key, step, *shape), f"draw kernel key {key} {what}")
+            for d in (None, digest):  # a key the card holds
+                cmp.windows(draw_windows(got.key, step, *shape, digest=d),
+                            draws_plain(got.key, step, *shape, digest=d),
+                            f"draw kernel, a key on the card, digest {d is not None}, {what}")
+            lanes += 3 * n * B
     c = JAX_DRAWS
-    sizes = (args[0].shape[0], args[2], args[1].shape[0])
+    sizes = draw_sizes(sampler)
     check(sizes == c["sizes"], f"the state's draw sizes {sizes} are not JAX_DRAWS' {c['sizes']}")
     r, d, ch = (t[:c["B"]].tolist() for t in sampler.draw_indices(c["step"], key=c["seed"]))
     check([r, d, ch] == [c["region"], c["donor"], c["chrom"]],
@@ -675,9 +732,10 @@ def draw_checks(sampler, seed: int, cmp: Comparisons) -> int:
 
 def draw_times(card: str, sampler) -> dict:
     """The draw kernel at each ``DRAW_BATCHES`` shape on fresh keys: device
-    time a launch back to back behind a sleep kernel (CUDA events) and from
-    the profiler, the wrapper's host time, the plain version's device time
-    (profiler) and host time, and the bound.  Returns each shape's numbers,
+    time a launch back to back behind a sleep kernel (CUDA events), from
+    the profiler and in a CUDA graph (CUDA events), the wrapper's host
+    time, the plain version's device time (profiler) and host time, and the
+    bound.  Returns each shape's numbers,
     keyed by its lane count."""
     args = draw_args(sampler)
     out = {}
@@ -692,13 +750,16 @@ def draw_times(card: str, sampler) -> dict:
         torch.cuda.synchronize()
         host_plain = (time.perf_counter() - t0) * 1e3 / 5
         plain = profiler_device_ms(draws_plain, calls[:5])
-        bound, by = draw_bound(draw_windows(*calls[0]))
+        bound, by = draw_bound(draw_windows(*calls[0]), draw_sizes(sampler))
+        graph = graph_ms(draw_windows, calls)
         lanes = n * BATCH
-        out[lanes] = {"ms": ev, "profiler_ms": prof, "host_ms": host, "plain_ms": plain,
-                      "plain_host_ms": host_plain, "bound_ms": bound, "bound_by": by}
+        out[lanes] = {"ms": ev, "profiler_ms": prof, "graph_ms": graph, "host_ms": host,
+                      "plain_ms": plain, "plain_host_ms": host_plain, "bound_ms": bound,
+                      "bound_by": by}
         log(f"[{card}] draw kernel at {lanes} lanes ({n} x B={BATCH}), 200 fresh keys: "
             f"{ev:.6f} ms/launch back to back (CUDA events), {_ms_text(prof, 'ms/launch')} "
-            f"device busy (profiler), {host:.5f} ms/call wrapper host time; plain version "
+            f"device busy (profiler), {graph:.6f} ms/launch in a CUDA graph (CUDA events), "
+            f"{host:.5f} ms/call wrapper host time; plain version "
             f"{_ms_text(plain, 'ms/call')} device busy (profiler), {host_plain:.4f} ms/call "
             f"host time; bound {bound:.7f} ms ({by})")
     return out
@@ -784,6 +845,32 @@ def profiler_device_ms(fn, args_list) -> float | None:
     if len(dev) < len(args_list):
         return None
     return sum(e.time_range.elapsed_us() for e in dev) / len(args_list) / 1e3
+
+
+def graph_ms(fn, args_list, replays: int = 10) -> float:
+    """Device ms a call of ``fn`` over ``args_list``, the calls captured in
+    one CUDA graph and replayed, as ``sample_chain``'s graph runs its links
+    (CUDA events over ``replays`` replays after one to warm up): no host
+    launch gap between them.  The capture advances the kernels' launch
+    counts without launching, so no caller reads a count across it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up that torch.cuda.graph asks for
+        for args in args_list:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for args in args_list:
+            fn(*args)
+    graph.replay()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / replays / len(args_list)
 
 
 def trace_calls(fn, n_calls: int, what: str, top: int = 6) -> tuple[str, dict]:
@@ -2835,7 +2922,7 @@ def chain_phase(card: str, seed: int, genome, cohort, regions, sampler,
              for i in range(N_LINK_BATCHES)]
     ev_draw, _ = device_ms(draw_windows, calls)
     batches = [(d.donor_idx, d.chrom_idx, d.start) for d in (draw_windows(*x) for x in calls)]
-    draw_bound_ms, _ = draw_bound(draw_windows(*calls[0]))
+    draw_bound_ms, _ = draw_bound(draw_windows(*calls[0]), draw_sizes(sampler))
     kern = functools.partial(encode_windows_kernel, sampler.index, L=SEQ_LENGTH, K=K_MAX)
     ev_kernel, _ = device_ms(kern, batches)
     outs = [kern(*x) for x in batches]
@@ -2843,6 +2930,21 @@ def chain_phase(card: str, seed: int, genome, cohort, regions, sampler,
     bound = lab.bound_ms("prod", slices, [o.n_variants.clamp(max=K_MAX) for o in outs], SEQ_LENGTH)
     out |= {"link_B": n_batches * BATCH, "link_kernel_ms": ev_kernel, "link_kernel_bound_ms": bound,
             "link_draw_ms": ev_draw, "link_draw_bound_ms": draw_bound_ms}
+
+    # a link split by CUDA events, each piece alone in a CUDA graph as the
+    # chain's graph runs it: the draws from a key on the card with a digest,
+    # the window kernel, chain_digest on the window kernel's outputs
+    link_batches = [HaplotypeBatch(o.hap1, o.hap2, o.hap1, o.hap2, o.n_variants, o.overflow)
+                    for o in outs]
+    split = {
+        "draw": graph_ms(lambda: draw_windows(last_key, 0, n_batches, BATCH, *args,
+                                              digest=digest), [()] * N_LINK_BATCHES),
+        "window_kernel": graph_ms(kern, batches),
+        "chain_digest": graph_ms(chain_digest, [(b,) for b in link_batches]),
+    }
+    del link_batches
+    out |= {"link_split_graph_ms": split,
+            "link_rest_ms": out["link_device_ms"] - sum(split.values())}
 
     # the kernel at the timed shape against the plain version: the graph's chain
     # and two of the timed launches
@@ -2868,7 +2970,10 @@ def chain_phase(card: str, seed: int, genome, cohort, regions, sampler,
         f"{16 * BATCH / med_many:,.0f} windows/s; the window kernel at B={n_batches * BATCH}: "
         f"{ev_kernel:.5f} ms a launch (CUDA events), bound {bound:.5f} ms (bytes, 3.35 TB/s); "
         f"the draw kernel there: {ev_draw:.6f} ms a launch (CUDA events), bound "
-        f"{draw_bound_ms:.6f} ms; "
+        f"{draw_bound_ms:.6f} ms; a link split, each piece alone in a CUDA graph (CUDA "
+        f"events): draw kernel {split['draw']:.6f} ms, window kernel "
+        f"{split['window_kernel']:.6f}, chain_digest {split['chain_digest']:.6f}, the rest of "
+        f"the link's {ev / n_chain:.6f} ms {out['link_rest_ms']:.6f}; "
         f"at this shape the graph's chain equal to the eager plain chain (digest "
         f"{out['timed_shape_checked']['digest']}, {n_chain} keys, the last link's "
         f"{n_batches * BATCH} windows) and {N_LINK_CHECKED} launches equal to the plain version")
@@ -2988,9 +3093,10 @@ def main() -> int:
         f"mean in-window SNVs {mean_nv:.3f}, max {int(many.n_variants.max())}")
     draw_cmp = Comparisons()
     lanes = draw_checks(sampler, args.seed, draw_cmp)
-    log(f"draw kernel checks: {draw_cmp.count} launches at {DRAW_BATCHES} x B={BATCH} "
-        f"({lanes:,} lanes) bit-equal to the plain version (host keys, keys on the card, a "
-        f"chain digest); step {JAX_DRAWS['step']} of PRNGKey({JAX_DRAWS['seed']}) and "
+    log(f"draw kernel checks: {draw_cmp.count} launches at {DRAW_BATCHES} x B={BATCH}, at "
+        f"(n_batches, B) in {DRAW_ODD_BATCHES} and at R in {DRAW_SPANS} ({lanes:,} lanes) "
+        f"bit-equal to the plain version (host keys, keys on the card, a chain digest); "
+        f"step {JAX_DRAWS['step']} of PRNGKey({JAX_DRAWS['seed']}) and "
         f"fold_in(key, {JAX_DRAWS['digest']:#x}) equal to the JAX package's")
 
     # -- 4. edge fixtures ---------------------------------------------------

@@ -8,11 +8,11 @@
 // haplohyped_tpu_torch/ops/threefry.py (the draws) and
 // haplohyped_tpu_torch/ops/draw_kernel.py::window_starts (the crop).
 //
-// One thread a lane t = i * B + j of n = n_batches * B lanes (batch i, lane j
-// of the batch), all in uint32 arithmetic that wraps, as XLA's:
+// For lane t = i * B + j of n = n_batches * B lanes (batch i, lane j of the
+// batch), all in uint32 arithmetic that wraps, as XLA's:
 //   base  = key, or fold_in(key, digest) where a digest is given (the chain's
-//           link update, so the chain's key never leaves the card); lane 0
-//           writes base to key_out
+//           link update, so the chain's key never leaves the card); written
+//           to key_out
 //   bk    = fold_in(base, step0 + i)             threefry(base, (0, step0 + i))
 //   kf    = split(bk, 3)[f]                      threefry(bk, (0, f)), f < 3
 //   kh,kl = split(kf)                            threefry(kf, (0, 0)), (0, 1)
@@ -22,30 +22,70 @@
 //           mid = (regions[r][0] + regions[r][1]) >> 1   (int32, floor)
 // with (region, donor, chrom) = (v_0, v_1, v_2) and sizes (R, D, C).
 //
-// What bounds it on this card.  Integer work: 16 threefry hashes a lane of
-// ~80 int32 operations each (the lane's 6 bit draws, and the 10 key
-// derivations of its batch, which every lane of the batch repeats), against
-// 16 bytes of stores and 12 of gathers a lane.  At the chain's 16,384 lanes
-// the work the function needs (6 hashes a lane, 10 a batch) is ~8.4 M int32
-// operations, ~0.5 us at 64 int32 lanes an SM; the stores take 0.08 us at
-// 3.35 TB/s.  So one launch sits at the launch floor.
+// What bounds it on this card.  Latency, not work.  A threefry hash is ~79
+// int32 operations in a dependent chain ~45 deep.  The function needs 10
+// hashes a batch (its keys) and, a lane, 2 a field, or 1 where m wraps to 0
+// (then v = l % s and h is never read): at the deployment's sizes (R, D, C)
+// = (100,000, 128, 12) m is 0 for R and D, so 4.  At the chain's 16,384
+// lanes that is ~6.0 M int32 operations, ~0.36 us on 64 INT32 lanes an SM,
+// against 16 bytes a lane stored (0.08 us at 3.35 TB/s).  But no lane can
+// start its own hashes before its batch's keys exist, three dependent hashes
+// after the launch (four with a digest, after the key's and the digest's
+// loads), and the crop's gather of the region waits on the region's hash:
+// at every lane count the sampler uses, the launch's floor and that chain
+// set the time.
 //
-// What the design does about it.  Nothing is shared between threads: each
-// recomputes its batch's keys in registers (no shared memory, no barrier, no
-// second launch) and the three fields' hashes are independent, which gives
-// the scheduler instruction-level parallelism over the 4-hash dependent
-// chain.  Rotations are one funnel shift.  Keys come either as two words by
-// value (a host key: no copy to the card) or from device memory (a key the
-// card made: the graph's input, the last link's key_out).  Computing each
-// batch's keys once (one warp a batch, through shared memory) is later work.
+// What the design does about it.
+//   1. Keys once a block.  Thread (b, f) of a block's first 3 * nb threads
+//      derives field f's (kh, kl) of the block's batch b (nb <= 64 batches)
+//      into shared memory: the digest fold, bk, kf, kh and kl, the chain's
+//      depth and no more.  After one barrier each thread hashes only its
+//      lane's bits: 4 hashes a lane at the deployment's sizes, not 17.
+//   2. Invariant divisors.  R, D, C and B are fixed for a launch, so every
+//      % and / is a multiply-high, a 64-bit add and a shift by constants the
+//      host computes once per size tuple (ops/draw_kernel.py::divisor), and
+//      m comes from the host too.  No division instruction runs.
+//   3. Spread the lane's work.  A block is 64 lanes and two warps a field
+//      (192 threads), so each thread hashes 1-2 words, and 16,384 lanes
+//      make 256 blocks over the 132 SMs, 1,024 make 16 (256-lane blocks of
+//      a thread a lane would make 64 and 4).  32-lane blocks spread
+//      further, but their extra blocks cost more than they save.  The region
+//      warps hand max(mid - L/2, 0) to the chrom warps through shared
+//      memory for the crop.
+// Keys come either as two words by value (a host key: no copy to the card)
+// or from device memory (a key the card made: the graph's input, the last
+// link's key_out).  Rotations are one funnel shift.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kLanes = 64;            // lanes a block
+constexpr int kThreads = 3 * kLanes;  // two warps a field: region, donor, chrom
 constexpr uint32_t kParity = 0x1BD11BDAu;
+
+// a divisor fixed for the launch: n / d = (umulhi(n, magic) + n) >> shift for
+// every uint32 n, the sum in 64 bits (Granlund and Montgomery's round-up
+// method); mult is randint's (2^16 % d)^2 % d in wrapping uint32
+struct Divisor {
+  uint32_t d, magic, shift, mult;
+};
+
+struct Divisors {
+  Divisor field[3];  // R, D, C
+  Divisor batch;     // B
+};
+static_assert(sizeof(Divisors) == 16 * sizeof(uint32_t), "hh_draw takes 16 words");
+
+__device__ __forceinline__ uint32_t quotient(uint32_t n, const Divisor& v) {
+  return static_cast<uint32_t>((static_cast<uint64_t>(__umulhi(n, v.magic)) + n) >> v.shift);
+}
+
+__device__ __forceinline__ uint32_t remainder(uint32_t n, const Divisor& v) {
+  return n - quotient(n, v) * v.d;
+}
 
 // rotation distance of round r (0..3) in group g: (13, 15, 26, 6) in even
 // groups, (17, 29, 16, 24) in odd ones; a constant after unrolling
@@ -72,56 +112,75 @@ __device__ __forceinline__ uint2 threefry(uint2 k, uint32_t x0, uint32_t x1) {
   return make_uint2(x0, x1);
 }
 
-__device__ __forceinline__ uint32_t bits32(uint2 k, uint32_t j) {
-  const uint2 y = threefry(k, 0u, j);
+__device__ __forceinline__ uint32_t bits32(uint32_t k0, uint32_t k1, uint32_t j) {
+  const uint2 y = threefry(make_uint2(k0, k1), 0u, j);
   return y.x ^ y.y;
-}
-
-// JAX's randint over [0, s) from the field key kf, lane j
-__device__ __forceinline__ int32_t randint(uint2 kf, uint32_t j, uint32_t s) {
-  const uint32_t h = bits32(threefry(kf, 0u, 0u), j);
-  const uint32_t l = bits32(threefry(kf, 0u, 1u), j);
-  uint32_t m = 65536u % s;
-  m = (m * m) % s;  // wraps to 0 for s > 2^16, as in uint32 XLA
-  return static_cast<int32_t>(((h % s) * m + l % s) % s);
 }
 
 __global__ void __launch_bounds__(kThreads) draw_kernel(
     const long long* __restrict__ key_in, uint32_t k0, uint32_t k1,
     const long long* __restrict__ digest, long long* __restrict__ key_out,
-    uint32_t step0, int n, int B, int R, int D, int C,
+    uint32_t step0, uint32_t n, Divisors div,
     const int32_t* __restrict__ regions,  // (R, 2)
     const int32_t* __restrict__ lengths,  // (C,)
     int L, int32_t* __restrict__ out) {   // (4, n): region, donor, chrom, start
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  uint2 base = key_in ? make_uint2(static_cast<uint32_t>(key_in[0]),
-                                   static_cast<uint32_t>(key_in[1]))
-                      : make_uint2(k0, k1);
-  if (digest) base = threefry(base, 0u, static_cast<uint32_t>(*digest));
-  if (t == 0) {
-    key_out[0] = base.x;
-    key_out[1] = base.y;
-  }
-  if (t >= n) return;
-  const int i = t / B;
-  const uint32_t j = static_cast<uint32_t>(t - i * B);
-  const uint2 bk = threefry(base, 0u, step0 + static_cast<uint32_t>(i));
-  const int32_t r = randint(threefry(bk, 0u, 0u), j, static_cast<uint32_t>(R));
-  const int32_t d = randint(threefry(bk, 0u, 1u), j, static_cast<uint32_t>(D));
-  const int32_t c = randint(threefry(bk, 0u, 2u), j, static_cast<uint32_t>(C));
+  __shared__ uint4 keys[kLanes][3];  // (kh, kl) of batch i0 + b, field f
+  __shared__ int32_t low[kLanes];    // max(mid - L/2, 0) of each lane's region
+  const uint32_t t0 = blockIdx.x * kLanes;
+  const uint32_t i0 = quotient(t0, div.batch);
+  const uint32_t nb = quotient(min(t0 + kLanes, n) - 1, div.batch) - i0 + 1;
 
-  // the window's start, in int32 arithmetic that wraps as torch's does
-  const int2 span = reinterpret_cast<const int2*>(regions)[r];
-  const int32_t mid = static_cast<int32_t>(static_cast<uint32_t>(span.x) +
-                                           static_cast<uint32_t>(span.y)) >> 1;
-  const int32_t lo = static_cast<int32_t>(static_cast<uint32_t>(mid) -
-                                          static_cast<uint32_t>(L / 2));
-  const int32_t lim = static_cast<int32_t>(static_cast<uint32_t>(lengths[c]) -
-                                           static_cast<uint32_t>(L));
-  out[t] = r;
-  out[n + t] = d;
-  out[2 * n + t] = c;
-  out[3 * n + t] = min(max(lo, 0), max(lim, 0));
+  // 1. the block's keys: thread (b, f) derives field f's of batch i0 + b
+  if (threadIdx.x < 3 * nb) {
+    const uint32_t b = threadIdx.x / 3, f = threadIdx.x - 3 * b;
+    uint2 base = key_in ? make_uint2(static_cast<uint32_t>(key_in[0]),
+                                     static_cast<uint32_t>(key_in[1]))
+                        : make_uint2(k0, k1);
+    if (digest) base = threefry(base, 0u, static_cast<uint32_t>(*digest));
+    if (t0 == 0 && threadIdx.x == 0) {
+      key_out[0] = base.x;
+      key_out[1] = base.y;
+    }
+    const uint2 kf = threefry(threefry(base, 0u, step0 + i0 + b), 0u, f);
+    const uint2 kh = threefry(kf, 0u, 0u), kl = threefry(kf, 0u, 1u);
+    keys[b][f] = make_uint4(kh.x, kh.y, kl.x, kl.y);
+  }
+  __syncthreads();
+
+  // 2. one field of one lane a thread; a warp's field is uniform
+  const uint32_t f = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const uint32_t t = t0 + lane;
+  const bool live = t < n;
+  const Divisor s = f == 0 ? div.field[0] : f == 1 ? div.field[1] : div.field[2];
+  uint32_t v = 0;
+  int32_t len = 0;
+  if (live) {
+    const uint32_t i = quotient(t, div.batch);
+    const uint32_t j = t - i * div.batch.d;
+    const uint4 k = keys[i - i0][f];
+    v = remainder(bits32(k.z, k.w, j), s);
+    if (s.mult != 0) {  // else (h % s) * m is 0 and h is not needed
+      const uint32_t h = remainder(bits32(k.x, k.y, j), s);
+      v = remainder(h * s.mult + v, s);
+    }
+    const size_t at = static_cast<size_t>(f) * n + t;
+    out[at] = static_cast<int32_t>(v);
+    if (f == 0) {  // the region's midpoint crop, in int32 arithmetic that wraps as torch's
+      const int2 span = reinterpret_cast<const int2*>(regions)[v];
+      const int32_t mid = static_cast<int32_t>(static_cast<uint32_t>(span.x) +
+                                               static_cast<uint32_t>(span.y)) >> 1;
+      low[lane] = max(static_cast<int32_t>(static_cast<uint32_t>(mid) -
+                                           static_cast<uint32_t>(L / 2)), 0);
+    } else if (f == 2) {
+      len = lengths[v];
+    }
+  }
+  __syncthreads();
+  if (live && f == 2) {
+    const int32_t lim = static_cast<int32_t>(static_cast<uint32_t>(len) -
+                                             static_cast<uint32_t>(L));
+    out[3 * static_cast<size_t>(n) + t] = min(low[lane], max(lim, 0));
+  }
 }
 
 }  // namespace
@@ -131,18 +190,25 @@ extern "C" {
 // Launches the kernel on `stream` for n = n_batches * B lanes; returns
 // cudaGetLastError().  key_in may be null (the key is then (k0, k1)), and
 // digest may be null (no link update); key_out gets the key the draws used.
+// `divisors` holds 16 words, (d, magic, shift, mult) of R, D, C and B in that
+// order, as ops/draw_kernel.py::divisor makes them; the kernel takes them by
+// value, so the host array may go once this returns.
 int hh_draw(const long long* key_in, uint32_t k0, uint32_t k1, const long long* digest,
-            long long* key_out, uint32_t step0, int n_batches, int B, int R, int D,
-            int C, const int32_t* regions, const int32_t* lengths, int L,
-            int32_t* out, void* stream) {
-  if (n_batches < 1 || B < 1 || R < 1 || D < 1 || C < 1 || L < 1 || key_out == nullptr)
+            long long* key_out, uint32_t step0, int n_batches, const uint32_t* divisors,
+            const int32_t* regions, const int32_t* lengths, int L, int32_t* out,
+            void* stream) {
+  if (n_batches < 1 || L < 1 || key_out == nullptr || divisors == nullptr)
     return (int)cudaErrorInvalidValue;
-  const long long n = (long long)n_batches * B;
+  Divisors div;
+  std::memcpy(&div, divisors, sizeof div);
+  const Divisor all[4] = {div.field[0], div.field[1], div.field[2], div.batch};
+  for (const Divisor& v : all)
+    if (v.d < 1 || v.d > 0x7FFFFFFFu || v.shift > 31) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)n_batches * div.batch.d;
   if (n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  const int blocks = (int)((n + kThreads - 1) / kThreads);
+  const int blocks = (int)((n + kLanes - 1) / kLanes);
   draw_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      key_in, k0, k1, digest, key_out, step0, (int)n, B, R, D, C, regions, lengths, L,
-      out);
+      key_in, k0, k1, digest, key_out, step0, (uint32_t)n, div, regions, lengths, L, out);
   return (int)cudaGetLastError();
 }
 

@@ -35,6 +35,7 @@ from haplohyped_tpu_torch.ops.threefry import (
     MASK32,
     fold_in,
     randint,
+    randint_multiplier,
     split,
 )
 
@@ -111,11 +112,30 @@ def draws_plain(key: Key, step0: int, n_batches: int, batch_size: int, regions: 
     return Draws(key, r, d, c, window_starts(regions, lengths, r, c, L))
 
 
+def divisor(d: int) -> tuple[int, int, int, int]:
+    """``(d, magic, shift, mult)``: the kernel's constants for a divisor
+    ``d`` in ``[1, 2^31)`` fixed for a launch.  For every uint32 ``n``,
+    ``n // d == ((n * magic >> 32) + n) >> shift``, the sum taken in 64 bits
+    (Granlund and Montgomery's round-up method: ``shift = ceil(log2 d)``,
+    ``magic = 2^32 (2^shift - d) // d + 1 < 2^32``), and ``mult`` is
+    :func:`~haplohyped_tpu_torch.ops.threefry.randint_multiplier` of ``d``."""
+    shift = (d - 1).bit_length()
+    magic = (((1 << shift) - d) << 32) // d + 1
+    return d, magic, shift, randint_multiplier(d)
+
+
+@functools.lru_cache(maxsize=64)
+def _divisors(R: int, D: int, C: int, B: int) -> ctypes.Array:
+    """``hh_draw``'s 16 words: :func:`divisor` of R, D, C and B, made once
+    per size tuple."""
+    return (ctypes.c_uint32 * 16)(*(w for d in (R, D, C, B) for w in divisor(d)))
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load_kernel("draw_kernel")
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    lib.hh_draw.argtypes = [p, u, u, p, p, u, i, i, i, i, i, p, p, i, p, p]
+    lib.hh_draw.argtypes = [p, u, u, p, p, u, i, ctypes.POINTER(u), p, p, i, p, p]
     lib.hh_draw.restype = ctypes.c_int
     lib.hh_draw_error_string.argtypes = [ctypes.c_int]
     lib.hh_draw_error_string.restype = ctypes.c_char_p
@@ -153,9 +173,9 @@ def draw_windows(key: Key, step0: int, n_batches: int, batch_size: int, regions:
         rc = lib.hh_draw(
             None if key_t is None else key_t.data_ptr(), k0, k1,
             None if digest is None else digest.data_ptr(), key_out.data_ptr(),
-            step0 & MASK32, n_batches, batch_size, regions.shape[0], n_donors,
-            lengths.shape[0], regions.data_ptr(), lengths.data_ptr(), L, out.data_ptr(),
-            stream,
+            step0 & MASK32, n_batches,
+            _divisors(regions.shape[0], n_donors, lengths.shape[0], batch_size),
+            regions.data_ptr(), lengths.data_ptr(), L, out.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"draw kernel launch failed: {lib.hh_draw_error_string(rc).decode()}")

@@ -12,7 +12,8 @@ phase 15 (the reference path); ``parallel`` writes phase 7's chr1 file and
 phase 14's chr22 cohort file, then runs phase 17 (the parallel path at world
 size 1, NCCL, in a process of its own); ``chain`` makes the deployment state
 and phase 3's sampler, then runs phase 18 (``sample_chain``, one CUDA graph
-over the window kernel).  The tree's own package and kernels
+over the window kernel); ``draw`` does the same after phase 6's draw-kernel
+times at 64, 1,024 and 16,384 lanes.  The tree's own package and kernels
 are used (built into its ``_build/``).  Needs a CUDA card.
 """
 
@@ -29,7 +30,7 @@ import time
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", required=True,
-                    choices=("single_pass", "tokenizer", "reference", "parallel", "chain"))
+                    choices=("single_pass", "tokenizer", "reference", "parallel", "chain", "draw"))
     ap.add_argument("--tag", required=True, help="the tree's name in the output")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the JSON object to this file")
@@ -57,10 +58,12 @@ def main(argv=None) -> int:
             if args.phase == "tokenizer":
                 torch.cuda.empty_cache()
                 out["tokenizer"] = cs.tokenizer_phase(card, tmp, dev, ctx)
-        elif args.phase == "chain":
+        elif args.phase in ("chain", "draw"):
             genome, cohort, regions = cs.make_state(args.seed, dev)
             cfg = cs.SamplerConfig(seq_length=cs.SEQ_LENGTH, batch_size=cs.BATCH)
             sampler = cs.DeviceHaplotypeSampler(genome, cohort, regions, cfg)
+            if args.phase == "draw":
+                out["draw"] = cs.draw_times(card, sampler)
             out["chain"] = cs.chain_phase(card, args.seed, genome, cohort, regions, sampler,
                                           cs.Comparisons())[0]
         elif args.phase == "reference":

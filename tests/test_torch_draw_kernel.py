@@ -5,9 +5,10 @@ sampler's draws of every step (``fold_in(key, step)``, ``split(., 3)``, one
 ``randint`` a field, as ``haplohyped_tpu/data/sampler.py::_sample_batch``
 makes them) and its window starts, bit for bit (tolerance 0).  The draws
 that ``chip_smoke.py`` holds the card's kernel to are checked against JAX
-here.  The kernel itself runs only on a card: the ``cuda``-marked test holds
-it bit-equal to the plain version at the sampler's lane counts, and
-``chip_smoke.py`` phase 3 does the same at full size.
+here, and so are the kernel's divisor constants, against ``//`` and ``%``.
+The kernel itself runs only on a card: the ``cuda``-marked test holds it
+bit-equal to the plain version at the sampler's lane counts and at odd batch
+sizes, and ``chip_smoke.py`` phase 3 does the same at full size.
 """
 
 import jax
@@ -20,10 +21,18 @@ from chip_smoke import JAX_DRAWS
 from haplohyped_tpu_torch.ops import threefry as tf
 from haplohyped_tpu_torch.ops.draw_kernel import (
     Draws,
+    divisor,
     draw_windows,
     draws_plain,
     window_starts,
 )
+
+#: divisor sizes: the smallest, small odd and even spans, the state's C and
+#: D, both sides of 2^16 (where randint's multiplier wraps to 0), the state's
+#: R and the largest int32 size
+DIVISORS = (1, 2, 3, 7, 12, 128, 65_535, 65_536, 65_537, 100_000, 2**31 - 1)
+#: batch sizes that neither fill nor divide the kernel's 64-lane blocks
+ODD_BATCHES = (1, 3, 65, 257)
 
 
 def jax_step_draws(key, step, sizes, B):
@@ -49,11 +58,9 @@ def state(R=50, C=3, seed=0):
     return regions, lengths
 
 
-@pytest.mark.parametrize("key", [(0, 7), (123, 2**32 - 1)])
-@pytest.mark.parametrize("step0", [0, 41, 2**31 - 3])
-def test_draws_equal_jax_on_cpu(key, step0):
-    regions, lengths = state()
-    D, B, n, L = 9, 5, 3, 300
+def assert_draws_equal_jax(key, step0, n, B, regions, lengths, D, L):
+    """``draw_windows`` on the CPU against the JAX sampler's draws and crop
+    of steps ``step0 .. step0 + n - 1``, bit for bit."""
     got = draw_windows(key, step0, n, B, torch.from_numpy(regions), torch.from_numpy(lengths),
                        D, L)
     assert isinstance(got, Draws) and got.key.tolist() == list(key)
@@ -67,6 +74,51 @@ def test_draws_equal_jax_on_cpu(key, step0):
             np.testing.assert_array_equal(g[lanes].numpy(), w)
         np.testing.assert_array_equal(got.start[lanes].numpy(),
                                       jax_starts(regions, lengths, r, c, L))
+
+
+@pytest.mark.parametrize("key", [(0, 7), (123, 2**32 - 1)])
+@pytest.mark.parametrize("step0", [0, 41, 2**31 - 3])
+def test_draws_equal_jax_on_cpu(key, step0):
+    assert_draws_equal_jax(key, step0, 3, 5, *state(), D=9, L=300)
+
+
+@pytest.mark.parametrize("B", ODD_BATCHES)
+def test_draws_equal_jax_at_odd_batch_sizes(B):
+    """The shapes the card's kernel is held to ``draws_plain`` at: a block
+    of the kernel covers part of a batch, or many."""
+    assert_draws_equal_jax((0xC0FFEE, 2**32 - 7), 2**31 - 2, 3, B, *state(R=70, C=5, seed=B),
+                           D=11, L=257)
+
+
+@pytest.mark.parametrize("d", DIVISORS)
+def test_divisor_constants_divide_every_uint32(d):
+    """The kernel's ``/`` and ``%`` by a size fixed for the launch, mirrored
+    in numpy uint64, against ``//`` and ``%`` at the edges (0, d - 1, d,
+    2^31, 2^32 - 1) and on a seeded sample; and its randint reduction, which
+    skips ``h`` where the multiplier is 0, against ``ops/threefry.py``'s."""
+    d_, magic, shift, mult = divisor(d)
+    assert d_ == d and 0 < magic < 2**32 and 0 <= shift <= 31
+    assert mult == tf.randint_multiplier(d)
+    rng = np.random.default_rng(d)
+    n = np.concatenate([np.array([0, d - 1, d, 2**31, 2**32 - 1], np.uint64),
+                        rng.integers(0, 2**32, 100_000, dtype=np.uint64)])
+    u32 = np.uint64(tf.MASK32)
+
+    def quotient(x):
+        return (((x * np.uint64(magic)) >> np.uint64(32)) + x) >> np.uint64(shift)
+
+    def remainder(x):
+        return x - quotient(x) * np.uint64(d)
+
+    np.testing.assert_array_equal(quotient(n), n // np.uint64(d))
+    np.testing.assert_array_equal(remainder(n), n % np.uint64(d))
+    h, low = n, rng.permutation(n)
+    v = remainder(low)
+    if mult:
+        v = remainder((remainder(h) * np.uint64(mult) + v) & u32)
+    want = (((((h % np.uint64(d)) * np.uint64(mult)) & u32) + low % np.uint64(d)) & u32
+            ) % np.uint64(d)
+    np.testing.assert_array_equal(v, want)
 
 
 def test_digest_folds_the_key_in_first():
@@ -153,10 +205,12 @@ def card():
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(card):
     regions, lengths = (torch.from_numpy(a).to(card) for a in state(R=1000, C=12, seed=3))
-    for n_batches in (1, 16, 256):
+    shapes = [(n_batches, 64) for n_batches in (1, 16, 256)]
+    shapes += [(n_batches, B) for B in ODD_BATCHES for n_batches in (1, 3)]
+    for n_batches, B in shapes:
         for key, step0 in (((0, 1), 0), ((2**32 - 1, 5), 2**31 - 300)):
             for digest in (None, torch.tensor(0xABCDEF12, device=card)):
-                args = (step0, n_batches, 64, regions, lengths, 128, 1000)
+                args = (step0, n_batches, B, regions, lengths, 128, 1000)
                 before = draw_windows.launches
                 got = draw_windows(key, *args, digest=digest)
                 assert draw_windows.launches == before + 1
