@@ -42,11 +42,6 @@ class Metrics:
             with self._lock:
                 self.timings[phase] += dt
 
-    def rate(self, counter: str, phase: str) -> float:
-        """counter / phase-time (e.g. variants per parse second)."""
-        t = self.timings.get(phase, 0.0)
-        return self.counters.get(counter, 0.0) / t if t > 0 else 0.0
-
     def snapshot(self) -> dict:
         with self._lock:
             return {

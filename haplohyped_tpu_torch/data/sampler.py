@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from haplohyped_tpu_torch.core.config import SamplerConfig, resolve_device
+from haplohyped_tpu_torch.core.profiling import annotate
 from haplohyped_tpu_torch.data.cohort import CohortTensors
 from haplohyped_tpu_torch.data.genome import GenomeTensors
 from haplohyped_tpu_torch.data.regions import load_bed_regions
@@ -137,46 +138,48 @@ class DeviceHaplotypeSampler:
         emit_onehot: bool = False,
         device: str | torch.device = "cuda",
     ):
-        self.device = resolve_device(device)
-        cohort_dev = cohort.device_arrays(self.device)
-        if genome.chrom_names != cohort.chrom_names:
-            # re-order/subset the cohort chrom axis into the genome's index
-            # space (chrom_idx is drawn in genome space; a mismatched layout
-            # would silently apply the wrong chromosome's variants)
-            missing = [c for c in genome.chrom_names if c not in cohort.chrom_names]
-            if missing:
-                raise ValueError(f"cohort lacks chromosomes present in genome: {missing}")
-            order = torch.tensor(
-                [cohort.chrom_names.index(c) for c in genome.chrom_names],
-                device=self.device,
-            )
-            cohort_dev = tuple(a.index_select(1, order) for a in cohort_dev)
-            cohort = CohortTensors(cohort.donors, list(genome.chrom_names), *cohort_dev)
-        self.genome = genome
-        self.cohort = cohort
-        self.config = config
-        self.num_channels = num_channels
-        self.onehot_dtype = onehot_dtype
-        self.emit_onehot = emit_onehot
-        self.kernel = config.resolved_kernel(self.device)
+        with annotate("hh.sampler.init"):
+            self.device = resolve_device(device)
+            cohort_dev = cohort.device_arrays(self.device)
+            if genome.chrom_names != cohort.chrom_names:
+                # re-order/subset the cohort chrom axis into the genome's index
+                # space (chrom_idx is drawn in genome space; a mismatched layout
+                # would silently apply the wrong chromosome's variants)
+                missing = [c for c in genome.chrom_names if c not in cohort.chrom_names]
+                if missing:
+                    raise ValueError(f"cohort lacks chromosomes present in genome: {missing}")
+                order = torch.tensor(
+                    [cohort.chrom_names.index(c) for c in genome.chrom_names],
+                    device=self.device,
+                )
+                cohort_dev = tuple(a.index_select(1, order) for a in cohort_dev)
+                cohort = CohortTensors(cohort.donors, list(genome.chrom_names), *cohort_dev)
+            self.genome = genome
+            self.cohort = cohort
+            self.config = config
+            self.num_channels = num_channels
+            self.onehot_dtype = onehot_dtype
+            self.emit_onehot = emit_onehot
+            self.kernel = config.resolved_kernel(self.device)
 
-        flat, offsets, self._lengths = genome.device_arrays(self.device)
-        #: operands of the plain version: genome, offsets, then the cohort's
-        self._plain_args = (flat, offsets, *cohort_dev)
-        self._regions = torch.as_tensor(
-            np.asarray(region_spans).astype(np.int32), device=self.device
-        )
-        #: ``PRNGKey(config.seed)``'s two words: the key of every key-less draw
-        self._base_key = prng_key(config.seed)
-        self._step = 0
-        self._chain_graph_cache = None  # ((n_chain, n_batches, emit_onehot), replay)
-        if self.kernel == "kernel":
-            self.index  # build it now, not in the first sample() call
+            flat, offsets, self._lengths = genome.device_arrays(self.device)
+            #: operands of the plain version: genome, offsets, then the cohort's
+            self._plain_args = (flat, offsets, *cohort_dev)
+            self._regions = torch.as_tensor(
+                np.asarray(region_spans).astype(np.int32), device=self.device
+            )
+            #: ``PRNGKey(config.seed)``'s two words: the key of every key-less draw
+            self._base_key = prng_key(config.seed)
+            self._step = 0
+            self._chain_graph_cache = None  # ((n_chain, n_batches, emit_onehot), replay)
+            if self.kernel == "kernel":
+                self.index  # build it now, not in the first sample() call
 
     @functools.cached_property
     def index(self) -> WindowIndex:
-        """The kernel's index (built once per sampler)."""
-        return build_window_index(*self._plain_args)
+        """The kernel's index (built once per sampler; span ``hh.sampler.index``)."""
+        with annotate("hh.sampler.index"):
+            return build_window_index(*self._plain_args)
 
     @classmethod
     def from_files(
@@ -288,9 +291,10 @@ class DeviceHaplotypeSampler:
                  kernel: str | None = None) -> HaplotypeBatch:
         """Steps ``step0 .. step0 + n_batches - 1`` of ``key`` as one batch
         of ``n_batches * B`` windows: one draw pass (which crops each window
-        too) and one encode pass."""
-        d = self._draws(key, step0, n_batches, kernel)
-        return self._encode(d.donor_idx, d.chrom_idx, d.start, kernel)
+        too) and one encode pass, under the span ``hh.sampler.batch``."""
+        with annotate("hh.sampler.batch"):
+            d = self._draws(key, step0, n_batches, kernel)
+            return self._encode(d.donor_idx, d.chrom_idx, d.start, kernel)
 
     def batch_at(self, step: int, key: KeyLike | None = None,
                  kernel: str | None = None) -> HaplotypeBatch:
@@ -338,25 +342,28 @@ class DeviceHaplotypeSampler:
         writes the key into the graph's input, replays it and returns the
         graph's outputs, which the next replay overwrites.  A capture records
         launches without running them, so the kernels' counts are set back
-        after it and advanced on every replay instead."""
+        after it and advanced on every replay instead.  The warm-up and the
+        capture are the span ``hh.sampler.chain_capture``, which opens and
+        closes outside the captured region."""
         shape = (n_chain, n_batches, self.emit_onehot)
         if self._chain_graph_cache is not None:
             if self._chain_graph_cache[0] == shape:
                 return self._chain_graph_cache[1]
             self._chain_graph_cache = None  # free the old pool before the capture
         dev = self.device
-        key_in = torch.zeros(2, dtype=torch.int64, device=dev)
-        # warm up on a side stream: builds and loads the kernels before the capture
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._chain_links(key_in, n_chain, n_batches, "kernel")
-        torch.cuda.current_stream(dev).wait_stream(side)
         counted = (encode_windows_kernel, draw_windows)
-        before = [k.launches for k in counted]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = self._chain_links(key_in, n_chain, n_batches, "kernel")
+        with annotate("hh.sampler.chain_capture"):
+            key_in = torch.zeros(2, dtype=torch.int64, device=dev)
+            # warm up on a side stream: builds and loads the kernels before the capture
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._chain_links(key_in, n_chain, n_batches, "kernel")
+            torch.cuda.current_stream(dev).wait_stream(side)
+            before = [k.launches for k in counted]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = self._chain_links(key_in, n_chain, n_batches, "kernel")
         per_replay = [k.launches - b for k, b in zip(counted, before)]
         for k, b in zip(counted, before):
             k.launches = b
@@ -377,21 +384,23 @@ class DeviceHaplotypeSampler:
 
     def _chain(self, n_chain: int, n_batches: int, key: KeyLike | None,
                kernel: str | None) -> ChainRun:
-        """The chain's run.  On the graph path its tensors are the graph's
-        outputs, which the next replay of that shape overwrites."""
+        """The chain's run, under the span ``hh.sampler.chain`` (the key, and
+        the replay or the eager links).  On the graph path its tensors are
+        the graph's outputs, which the next replay of that shape overwrites."""
         if n_chain < 1 or n_batches < 1:
             raise ValueError(f"n_chain and n_batches must be >= 1, got {n_chain}, {n_batches}")
-        if key is None:
-            # JAX's key-less chain starts from fold_in(base key, step counter),
-            # hashed in Python ints: nothing reaches the card
-            first = fold_in_words(self._base_key, self._step)
-            self._step += n_chain * n_batches
-        else:
-            first = self._key(key)
-        kernel = kernel or self.kernel
-        if self.device.type == "cuda" and kernel == "kernel":
-            return self._chain_graph(n_chain, n_batches)(first)
-        return self._chain_links(first, n_chain, n_batches, kernel)
+        with annotate("hh.sampler.chain"):
+            if key is None:
+                # JAX's key-less chain starts from fold_in(base key, step counter),
+                # hashed in Python ints: nothing reaches the card
+                first = fold_in_words(self._base_key, self._step)
+                self._step += n_chain * n_batches
+            else:
+                first = self._key(key)
+            kernel = kernel or self.kernel
+            if self.device.type == "cuda" and kernel == "kernel":
+                return self._chain_graph(n_chain, n_batches)(first)
+            return self._chain_links(first, n_chain, n_batches, kernel)
 
     def chain_run(self, n_chain: int, n_batches: int, key: KeyLike | None = None,
                   kernel: str | None = None) -> ChainRun:

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
 from haplohyped_tpu_torch.core.config import resolve_device
+from haplohyped_tpu_torch.core.profiling import annotate
 from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
 from haplohyped_tpu_torch.ops.haplotype_window import windows_to_onehot
 from haplohyped_tpu_torch.parallel import distributed
@@ -97,41 +98,49 @@ def create_train_state(
     (optax applies no mask: biases, norms and ``pos_embed`` decay too).
     With ``mesh`` (on ``device``'s kind), every rank builds the same model
     and keeps its ``model`` shards of it."""
-    model = HaploFormer(cfg, sample_batch[0].shape[1], seed, device=device)
-    if mesh is not None:
-        if mesh.device_type != resolve_device(device).type:
-            raise ValueError(f"a {mesh.device_type} mesh for a model on {device}")
-        shard_model(model, mesh)
-    optimizer = torch.optim.AdamW(model.parameters(), lr=learning_rate, **ADAMW)
+    with annotate("hh.train.create_state"):
+        model = HaploFormer(cfg, sample_batch[0].shape[1], seed, device=device)
+        if mesh is not None:
+            if mesh.device_type != resolve_device(device).type:
+                raise ValueError(f"a {mesh.device_type} mesh for a model on {device}")
+            shard_model(model, mesh)
+        optimizer = torch.optim.AdamW(model.parameters(), lr=learning_rate, **ADAMW)
     return TrainState(model, optimizer, 0, mesh)
 
 
 def _average_over_data(params: list, metrics: dict, mesh: DeviceMesh) -> dict:
     """Average every gradient and the metrics over ``data`` in one flat
-    all-reduce; returns the averaged metrics."""
+    all-reduce; returns the averaged metrics.  The span
+    ``hh.parallel.allreduce`` (attribute ``bytes``: the flat buffer's size)
+    covers the exchange and the copy back, not the concatenation."""
     grads = [p.grad for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads]
                      + [torch.stack([m.float() for m in metrics.values()])])
-    dist.all_reduce(flat, group=axis_group(mesh, "data"))
-    flat /= axis_size(mesh, "data")
-    parts = flat.split([g.numel() for g in grads] + [len(metrics)])
-    torch._foreach_copy_(grads, [part.view_as(g) for g, part in zip(grads, parts)])
+    with annotate("hh.parallel.allreduce", bytes=flat.numel() * flat.element_size()):
+        dist.all_reduce(flat, group=axis_group(mesh, "data"))
+        flat /= axis_size(mesh, "data")
+        parts = flat.split([g.numel() for g in grads] + [len(metrics)])
+        torch._foreach_copy_(grads, [part.view_as(g) for g, part in zip(grads, parts)])
     return dict(zip(metrics, parts[-1].unbind()))
 
 
 def _train_step(state: TrainState, hap1, hap2, n_variants, mesh: DeviceMesh | None = None):
     if state.mesh is not mesh:
         raise ValueError("the train state was made for another mesh than the step's")
-    if mesh is not None:
-        block = shard_batch_spec(mesh)
-        hap1, hap2, n_variants = (block.local(t) for t in (hap1, hap2, n_variants))
-    loss, aux = loss_fn(state.model, hap1, hap2, n_variants)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
-    if mesh is not None:
-        metrics = _average_over_data(list(state.model.parameters()), metrics, mesh)
-    state.optimizer.step()
+    with annotate("hh.train.step"):
+        if mesh is not None:
+            block = shard_batch_spec(mesh)
+            hap1, hap2, n_variants = (block.local(t) for t in (hap1, hap2, n_variants))
+        with annotate("hh.train.forward"):
+            loss, aux = loss_fn(state.model, hap1, hap2, n_variants)
+        with annotate("hh.train.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+        if mesh is not None:
+            metrics = _average_over_data(list(state.model.parameters()), metrics, mesh)
+        with annotate("hh.train.optimizer"):
+            state.optimizer.step()
     return TrainState(state.model, state.optimizer, state.step + 1, mesh), metrics
 
 
@@ -156,8 +165,9 @@ def make_fused_train_step(sampler, mesh: DeviceMesh | None = None):
     With ``mesh`` every rank draws the global batch and trains on its block."""
 
     def fused(state: TrainState, step_idx: int):
-        b = sampler.batch_at(step_idx)
-        return _train_step(state, b.hap1, b.hap2, b.n_variants, mesh)
+        with annotate("hh.train.fused_step"):
+            b = sampler.batch_at(step_idx)
+            return _train_step(state, b.hap1, b.hap2, b.n_variants, mesh)
 
     return fused
 

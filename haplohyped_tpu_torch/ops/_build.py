@@ -23,6 +23,8 @@ import uuid
 from pathlib import Path
 from typing import NamedTuple
 
+from haplohyped_tpu_torch.core.profiling import annotate
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -173,9 +175,11 @@ def load_hostio() -> ctypes.CDLL:
 
 @functools.cache
 def load_kernel(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, building it if needed."""
-    sources = _kernel_sources(name)
-    if not sources[0].exists():
-        raise FileNotFoundError(sources[0])
-    path = build_shared_library(name, sources, _nvcc(), NVCC_FLAGS, deps=_kernel_deps())
-    return ctypes.CDLL(str(path))
+    """The built library of ``csrc/<name>.cu``, building it if needed.  The
+    span ``hh.build.load_kernel`` covers the first call of each name only."""
+    with annotate("hh.build.load_kernel", kernel=name):
+        sources = _kernel_sources(name)
+        if not sources[0].exists():
+            raise FileNotFoundError(sources[0])
+        path = build_shared_library(name, sources, _nvcc(), NVCC_FLAGS, deps=_kernel_deps())
+        return ctypes.CDLL(str(path))
