@@ -12,6 +12,12 @@ layout: ``(B, L)`` int8 codes (or ``(B, L, C)`` one-hot) in, a dict of
   function as two passes);
 - heads: the pair's variant count, and per-token base logits of hap1.
 
+Layout: between the stem and the heads the tokens are one contiguous,
+token-major ``(2B, T, d)`` tensor, and every residual add keeps it so.  Each
+``LayerNorm`` then reads a contiguous float32 input, which ``layer_norm``
+uses as it is in the forward and the backward; a channels-first view there
+would cost a transposing float32 copy in each.
+
 Parameters keep flax's names and layouts (``kernel``/``bias``/``scale``,
 conv kernels ``(W, in, out)``, attention kernels ``(d, heads, head_dim)``),
 so a flax params tree maps onto ``state_dict`` name for name
@@ -221,7 +227,9 @@ class Block(nn.Module):
 class ConvStem(nn.Module):
     """One-hot, conv, GELU, max pool by ``pool // 2``, conv, GELU, max pool
     by 2 (VALID, floored): ``(B, L)`` codes or ``(B, L, C)`` one-hot to
-    ``(B, L // pool, d_model)`` tokens, channels-last at both ends."""
+    ``(B, L // pool, d_model)`` tokens, channels-last at both ends.  The
+    tokens come out contiguous: the blocks' residual stream keeps the
+    layout of its first operand, this output."""
 
     def __init__(self, cfg: HaploFormerConfig, g: torch.Generator):
         super().__init__()
@@ -239,7 +247,7 @@ class ConvStem(nn.Module):
         x = x.to(dt).transpose(1, 2)  # (B, C, L): conv1d is channels-first
         x = F.max_pool1d(_gelu(self.conv1(x)), c.pool // 2)
         x = F.max_pool1d(_gelu(self.conv2(x)), 2)
-        return x.transpose(1, 2)
+        return x.transpose(1, 2).contiguous()
 
 
 class HaploFormer(nn.Module):
@@ -294,7 +302,11 @@ class HaploFormer(nn.Module):
         p1, p2 = h1.mean(dim=1), h2.mean(dim=1)
         pair = self.pair_ln(torch.cat([p1 + p2, (p1 - p2).abs()], dim=-1))  # order-invariant
         count = self.count_head(pair)[..., 0]
-        base_logits = self.base_head(h1)
+        # the product, then the bias, each rounded to the compute dtype, as
+        # flax's Dense rounds: on this contiguous h1, F.linear would add the
+        # bias inside the product and round once
+        head = self.base_head
+        base_logits = h1 @ head.kernel.to(h1.dtype) + head.bias.to(h1.dtype)
         return {
             "pair_embedding": pair.float(),
             "variant_count": count.float(),

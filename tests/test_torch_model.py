@@ -19,6 +19,8 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 import jax
 
@@ -26,6 +28,7 @@ from haplohyped_tpu.models.haploformer import HaploFormer as JaxHaploFormer
 from haplohyped_tpu.models.haploformer import HaploFormerConfig as JaxConfig
 from haplohyped_tpu_torch import convert
 from haplohyped_tpu_torch.models.haploformer import (
+    ConvStem,
     HaploFormer,
     HaploFormerConfig,
     train_flops_per_step,
@@ -240,3 +243,134 @@ def test_card_matches_cpu_in_float32():
     for k, want in outs[0].items():
         err = float((outs[1][k] - want).abs().max()) / max(float(want.abs().max()), floor)
         assert err <= 1e-4, (k, err)
+
+
+def _pair(cfg, n, L, seed, device="cpu"):
+    g = torch.Generator().manual_seed(seed)
+    h1, h2 = (torch.randint(0, cfg.num_channels, (n, L), generator=g, dtype=torch.int8)
+              for _ in range(2))
+    nv = torch.randint(0, 10, (n,), generator=g, dtype=torch.int32)
+    return h1.to(device), h2.to(device), nv.to(device)
+
+
+def _channels_first_stem(monkeypatch):
+    """Make the stem hand over its tokens as the channels-first view
+    ``(2B, T, d)`` with strides ``(T d, 1, T)`` that conv1d's output gives
+    when only transposed: the same values in the layout the blocks must
+    not carry."""
+    shipped = ConvStem.forward
+
+    def forward(self, x):
+        return shipped(self, x).transpose(1, 2).contiguous().transpose(1, 2)
+
+    monkeypatch.setattr(ConvStem, "forward", forward)
+
+
+@pytest.mark.parametrize("widths", [WIDTHS, dict(d_model=512, num_layers=2)],
+                         ids=["d32", "d512"])
+def test_stream_layout_changes_no_bit(widths, monkeypatch):
+    """The loss, the three outputs and every gradient are bit-equal whether
+    the blocks carry the contiguous token-major stream or the stem's
+    channels-first view of the same values.  Biases and norm scales are
+    moved off their initial zeros and ones, as training moves them: a zero
+    bias would hide where it is added (the base head adds its own after the
+    product on either layout).  In the compute dtype, bf16: a float32 model
+    sums the token mean in another order on the other layout."""
+    cfg = HaploFormerConfig(**widths)
+    h1, h2, nv = _pair(cfg, 2, 1000, seed=widths["d_model"])
+
+    def run():
+        m = HaploFormer(cfg, 1000, seed=0, device="cpu")
+        g = torch.Generator().manual_seed(11)
+        with torch.no_grad():
+            for n, p in m.named_parameters():
+                if n.endswith((".bias", ".scale")):
+                    p.add_(torch.randn(p.shape, generator=g) * 0.01)
+        outs = []
+        m.register_forward_hook(lambda mod, args, out: outs.append(out))
+        stem_contiguous = []
+        m.stem.register_forward_hook(lambda mod, args, out: stem_contiguous.append(out.is_contiguous()))
+        loss, _ = loss_fn(m, h1, h2, nv)
+        loss.backward()
+        return stem_contiguous[0], loss, outs[0], {n: p.grad for n, p in m.named_parameters()}
+
+    contiguous, loss, out, grads = run()
+    with monkeypatch.context() as mp:
+        _channels_first_stem(mp)
+        view_contiguous, view_loss, view_out, view_grads = run()
+    assert contiguous and not view_contiguous
+    assert torch.equal(loss, view_loss)
+    assert out.keys() == view_out.keys() == {"pair_embedding", "variant_count", "base_logits"}
+    for k in out:
+        assert torch.equal(out[k], view_out[k]), k
+    assert grads.keys() == view_grads.keys()
+    for n in grads:
+        assert grads[n] is not None and torch.equal(grads[n], view_grads[n]), n
+
+
+class _StreamAudit(TorchDispatchMode):
+    """Below autograd, the ops that read a non-contiguous tensor of the
+    residual stream's shape: the norms and adds that receive one
+    (``misses``), and the copies made from one (``copies``)."""
+
+    CHECKED = {"native_layer_norm", "native_layer_norm_backward", "add", "add_"}
+    COPIES = {"clone", "copy_", "_to_copy"}
+
+    def __init__(self, shape):
+        super().__init__()
+        self.shape, self.misses, self.copies = tuple(shape), [], 0
+
+    def _strided(self, t):
+        return isinstance(t, torch.Tensor) and tuple(t.shape) == self.shape and not t.is_contiguous()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func.overloadpacket.__name__
+        if name in self.CHECKED:
+            self.misses += [(name, t.dtype, t.stride()) for t in tree_leaves((args, kwargs))
+                            if self._strided(t)]
+        if name in self.COPIES:
+            source = args[1] if name == "copy_" else args[0]
+            self.copies += self._strided(source)
+        return func(*args, **kwargs)
+
+
+def _audit_step(model, h1, h2, nv):
+    n, T, d = 2 * h1.shape[0], h1.shape[1] // model.cfg.pool, model.cfg.d_model
+    with _StreamAudit((n, T, d)) as audit:
+        loss, _ = loss_fn(model, h1, h2, nv)
+        loss.backward()
+    return audit
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_residual_stream_is_never_read_strided(device, monkeypatch):
+    """The mechanism's counter: in a forward and backward of ``loss_fn`` no
+    LayerNorm (forward or backward) and no add receives a non-contiguous
+    tensor of the stream's ``(2B, T, d)`` shape, and the copies from such a
+    tensor are the stem's own hand-over, one forward and one backward at
+    most, beside the attention's own (its key gradient, which the head
+    transposes leave T-major: counted on one ``Attention`` given a
+    contiguous stream-shaped input)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = HaploFormerConfig(**WIDTHS)
+    model = HaploFormer(cfg, 1000, seed=0, device=device)
+    h1, h2, nv = _pair(cfg, B, 1000, seed=5, device=device)
+    audit = _audit_step(model, h1, h2, nv)
+    assert audit.misses == []
+
+    x = torch.randn(2 * B, 1000 // cfg.pool, cfg.d_model, device=device,
+                    dtype=cfg.compute_dtype, requires_grad=True)
+    with _StreamAudit(x.shape) as attention:
+        y = model.block0.attn(x)
+        y.backward(torch.ones_like(y))
+    assert attention.misses == []
+    assert audit.copies - cfg.num_layers * attention.copies <= 2
+
+    # the audit sees the layout it guards against
+    model.zero_grad(set_to_none=True)
+    _channels_first_stem(monkeypatch)
+    strided = _audit_step(model, h1, h2, nv)
+    assert {name for name, *_ in strided.misses} >= {"native_layer_norm",
+                                                     "native_layer_norm_backward", "add"}
