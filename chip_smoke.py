@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--seed N] [--train-times | --parallel DIR]
+    python3 chip_smoke.py [--seed N] [--train-times | --parallel DIR | --long-windows]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -199,13 +199,29 @@ Phases (any failure exits non-zero; nothing is caught):
    graph's ``chain_run(16, 256, key=k)`` equal to the eager plain chain
    (digest, keys, the last link's 16,384 windows) and two of the timed
    B = 16,384 launches bit-equal to the plain version.
+19. The window kernel at long windows and past 128 variants, bit-equal to
+   the plain version, its launch count set to 0 just before each call and
+   read just after (one launch a call): Enformer's window pairs, B=2 at
+   L=196,608, at K in {512, 300, 129} (a thread holds up to four applied
+   variants, a window is cut into parts of 8,192 bytes) and at K in {128,
+   64}; B in {1, 61} x L in {8,192, 8,193, 40,000} x K in {512, 128}; and
+   ``sample()`` on a sampler at Enformer's ``SamplerConfig(seq_length=
+   196608, batch_size=2, max_variants_per_window=512)``, draws and encode
+   against their plain versions, with no window past K.  Times at B=2,
+   L=196,608, K=512 on fresh windows (CUDA events back to back, the kernels
+   line's ``ms``; and the profiler, which late in a long process may record
+   no device ops) beside the
+   bound (bytes, 3.35 TB/s) and the least bytes a window moves (its genome
+   bytes read, its two rows written, each applied SNV read once).
+   ``python3 chip_smoke.py --long-windows`` runs phases 2 and 19 alone.
 
 The lines before the last are a JSON object ``{"train": {...}}`` of phase
 13's numbers, one ``{"single_pass": {...}}`` of phase 14's, one
 ``{"reference": {...}}`` of phase 15's, one ``{"tokenizer": {...}}`` of
 phase 16's, one ``{"parallel": {...}}`` of phase 17's, one ``{"chain":
-{...}}`` of phase 18's, then one with one entry per kernel; the last line is
-``{"ok": true, "device": {...}}``.
+{...}}`` of phase 18's, one ``{"long_windows": {...}}`` of phase 19's, then
+one with one entry per kernel; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -986,6 +1002,102 @@ def window_times(card: str, index, batches, n_plain: int, cmp: "Comparisons") ->
         f"{_ms_text(prof_floor, 'ms/call')} device busy (profiler), "
         f"{host_floor:.5f} ms/call host time")
     return {"ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": ms_bound}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the window kernel at long windows and past 128 variants
+# ---------------------------------------------------------------------------
+
+#: Enformer's sampler: window pairs a step, window length, variants applied
+ENFORMER_B, ENFORMER_L, ENFORMER_K = 2, 196_608, 512
+#: (B, L, K) of phase 19's comparisons: Enformer's batch and window past and
+#: up to 128 variants, and windows of one part, just past one part and of
+#: several parts at K=512 and K=128
+LONG_SHAPES = ([(ENFORMER_B, ENFORMER_L, K) for K in (ENFORMER_K, 300, 129, 128, 64)]
+               + [(B, L, K) for B in (1, 61) for L in (8192, 8193, 40_000)
+                  for K in (ENFORMER_K, 128)])
+
+
+def long_windows_phase(card: str, seed: int, genome, cohort, regions, sampler,
+                       cmp: Comparisons) -> dict:
+    """Phase 19 (``sampler``: phase 3's, whose index the comparisons use).
+    Returns its numbers: comparisons, launches, windows past K, the times
+    and the bounds at Enformer's shape."""
+    t_phase = time.perf_counter()
+    index, dev = sampler.index, sampler.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    launches = n_cmp = over_k = 0
+    for B, L, K in LONG_SHAPES:
+        for _ in range(2):
+            d, c, s = random_draws(sampler, B, L, gen)
+            encode_windows_kernel.launches = 0
+            got = cmp.encode(index, d, c, s, L, K, f"long windows B={B} L={L} K={K}")
+            check(encode_windows_kernel.launches == 1,
+                  f"B={B} L={L} K={K}: {encode_windows_kernel.launches} window kernel launches")
+            launches += 1
+            n_cmp += 1
+            if K == ENFORMER_K:
+                over_k += int((got.overflow > 0).sum())
+
+    # Enformer's sampler: draws and encode at its config, against the plain ones
+    lcfg = SamplerConfig(seq_length=ENFORMER_L, batch_size=ENFORMER_B,
+                         max_variants_per_window=ENFORMER_K)
+    long_sampler = DeviceHaplotypeSampler(genome, cohort, regions, lcfg)
+    encode_windows_kernel.launches = draw_windows.launches = 0
+    batches = [long_sampler.sample() for _ in range(4)]
+    torch.cuda.synchronize()
+    check(encode_windows_kernel.launches == 4 and draw_windows.launches == 4,
+          f"4 sample() calls at L={ENFORMER_L}: {encode_windows_kernel.launches} window and "
+          f"{draw_windows.launches} draw kernel launches, not one each a call")
+    launches += 4
+    base = prng_key(lcfg.seed)
+    args = (long_sampler._regions, long_sampler._lengths, long_sampler.cohort.num_donors,
+            ENFORMER_L)
+    for step, b in enumerate(batches):
+        d = draws_plain(base, step, 1, ENFORMER_B, *args)
+        want = long_sampler.windows_from_draws(*d[1:4], kernel="baseline")
+        cmp.windows(b, want, f"sample() at L={ENFORMER_L} K={ENFORMER_K}, step {step}")
+        over_k += int((b.overflow > 0).sum())
+        n_cmp += 1
+    check(over_k == 0, f"{over_k} windows at K={ENFORMER_K} held more than K variants")
+    del long_sampler, batches
+
+    # times at Enformer's shape, on fresh windows
+    L, K, B = ENFORMER_L, ENFORMER_K, ENFORMER_B
+    timed = [random_draws(sampler, B, L, gen) for _ in range(40)]
+    kern = functools.partial(encode_windows_kernel, index, L=L, K=K)
+    plain = functools.partial(encode_haplotype_windows, *index.plain_args, L=L, K=K)
+    ev_ms, host_ms = device_ms(kern, timed)
+    ms = profiler_device_ms(kern, timed)
+    plain_ms = profiler_device_ms(plain, timed[:4])
+    outs = [kern(*x) for x in timed]
+    slices = [window_slice(index, *x, L) for x in timed]
+    n_apply = [o.n_variants.clamp(max=K) for o in outs]
+    bound = lab.bound_ms("prod", slices, n_apply, L)
+    applied = float(sum(float(k.double().sum()) for k in n_apply)) / len(timed)
+    # each window's genome bytes read, its two rows and counts written, its
+    # draw read, each applied SNV's position and alleles read once
+    least_ms = (B * (12 + 3 * L + 8) + 6 * applied) / HBM_BYTES_PER_S * 1e3
+    for x, out in zip(timed[:2], outs[:2]):
+        cmp.windows(out, plain(*x), f"timed batch B={B} L={L} K={K}")
+    n_cmp += 2
+    nv = torch.cat([o.n_variants for o in outs]).double()
+    phase_s = time.perf_counter() - t_phase
+    log(f"long windows: {n_cmp} kernel/plain comparisons bit-equal at (B, L, K) in "
+        f"{LONG_SHAPES} (two draws each), 4 sample() batches at L={L} K={K} and 2 timed; "
+        f"{launches} window kernel launches, one a call; {over_k} windows past K={K}")
+    log(f"[{card}] window kernel B={B} L={L} K={K}, {len(timed)} batches of fresh windows "
+        f"({float(nv.mean()):.1f} SNVs a window on average, {int(nv.max())} at most): "
+        f"{_ms_text(ms, 'ms/batch')} device busy (profiler), {ev_ms:.6f} ms/batch back to "
+        f"back (CUDA events), {host_ms:.5f} ms/call wrapper host time; bound {bound:.6f} ms "
+        f"(bytes, 3.35 TB/s), least bytes {least_ms:.6f} ms; plain version "
+        f"{_ms_text(plain_ms, 'ms/batch')} device busy (profiler, 4 batches); phase "
+        f"{phase_s:.1f} s")
+    return {"comparisons": n_cmp, "launches": launches, "windows_past_k": over_k,
+            "B": B, "L": L, "K": K, "ms": ms, "event_ms": ev_ms, "host_ms": host_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound, "least_bytes_ms": least_ms,
+            "snvs_mean": float(nv.mean()), "snvs_max": int(nv.max()), "phase_s": phase_s}
 
 
 # ---------------------------------------------------------------------------
@@ -2994,6 +3106,9 @@ def main() -> int:
                     help="run phase 17 alone on the files phases 7 and 14 wrote under DIR and "
                          "print its numbers as one JSON line (phase 17 runs this in a process "
                          "of its own)")
+    ap.add_argument("--long-windows", action="store_true",
+                    help="run phase 19 alone on phase 2's state and print its numbers as one "
+                         "JSON line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3007,6 +3122,13 @@ def main() -> int:
         return 0
     dev = torch.device("cuda")
     cmp = Comparisons()
+    if args.long_windows:
+        genome, cohort, regions = make_state(args.seed, dev)
+        sampler = DeviceHaplotypeSampler(genome, cohort, regions,
+                                         SamplerConfig(seq_length=SEQ_LENGTH, batch_size=BATCH))
+        long = long_windows_phase(card_line(), args.seed, genome, cohort, regions, sampler, cmp)
+        print(json.dumps({"long_windows": long, "max_abs_err": cmp.max_abs_err}), flush=True)
+        return 0
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -3207,6 +3329,12 @@ def main() -> int:
     chain, chain_launches = chain_phase(card, args.seed, genome, cohort, regions, sampler, cmp)
     log(json.dumps({"chain": chain}))
 
+    # -- 19. long windows and K past 128 ------------------------------------
+    torch.cuda.empty_cache()
+    long_cmp = Comparisons()
+    long = long_windows_phase(card, args.seed, genome, cohort, regions, sampler, long_cmp)
+    log(json.dumps({"long_windows": long}))
+
     kernels = [{
         "name": "window_kernel",
         "route": "cuda",
@@ -3218,6 +3346,18 @@ def main() -> int:
         "ms": ms_kernel,
         "plain_ms": ms_plain,
         "bound_ms": ms_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "window_kernel_long",
+        "route": "cuda",
+        "source": "haplohyped_tpu_torch/csrc/window_kernel.cu",
+        "replaces": "haplohyped_tpu/ops/pallas_window.py:178",
+        "launches": long["launches"],
+        "max_abs_err": long_cmp.max_abs_err,
+        "ms": long["event_ms"],
+        "plain_ms": long["plain_ms"],
+        "bound_ms": long["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
     }]

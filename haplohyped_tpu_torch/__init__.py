@@ -26,6 +26,7 @@ from haplohyped_tpu_torch.data.cohort import CohortTensors
 from haplohyped_tpu_torch.data.genome import GenomeTensors
 from haplohyped_tpu_torch.data.regions import load_bed_regions
 from haplohyped_tpu_torch.data.sampler import DeviceHaplotypeSampler, HaplotypeBatch
+from haplohyped_tpu_torch.models.enformer import Enformer, EnformerConfig
 from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
 from haplohyped_tpu_torch.models.train import train_on_sampler
 from haplohyped_tpu_torch.version import __version__
@@ -33,6 +34,8 @@ from haplohyped_tpu_torch.version import __version__
 __all__ = [
     "CohortTensors",
     "DeviceHaplotypeSampler",
+    "Enformer",
+    "EnformerConfig",
     "GenomeTensors",
     "HaploFormer",
     "HaploFormerConfig",

@@ -16,7 +16,7 @@ namespace hh_window {
 // threads a block: at 40 registers a thread, 256 would leave room for 6
 // blocks an SM, and a batch of 1,024 windows would take two waves on 132 SMs
 constexpr int kThreads = 128;
-constexpr int kMaxK = 128;           // most variants applied to a window
+constexpr int kMaxK = 512;           // most variants applied to a window
 constexpr int kBK = 12;              // log2 of the bucket width in bp
 constexpr int kTile = 2048;          // window bytes staged at once
 constexpr int kPlane = kTile + 32;   // a tile's aligned superset + one word of over-read

@@ -7,7 +7,7 @@
 // to the plain PyTorch version,
 // haplohyped_tpu_torch/ops/haplotype_window.py::encode_haplotype_windows.
 //
-// Per window b (one block of kThreads threads):
+// Per window b (one block of kThreads threads, or one a part of a long window):
 //   row   = donor[b] * C + chrom[b]
 //   flat  = clamp(offsets[chrom] + start, 0, G - L)       (64-bit address)
 //   lo/hi = number of positions < start / < start + L in the row
@@ -45,8 +45,17 @@
 // from the planes with 16-byte vector stores; the ragged head and tail of a
 // row go byte by byte.  A slice longer than the block (dense rows) is
 // counted in strides of kThreads and its applied variants are loaded again
-// after the count; a window longer than kTile bytes is staged and stored in
-// tiles.  Both stay correct for any input, only slower.
+// after the count, in strides of kThreads too: a thread holds applied
+// variants tid, tid + kThreads, ... (kPer of them, a template parameter: 1
+// for one part with K <= kThreads, else kMaxK / kThreads).  A window longer
+// than kTile bytes is staged and stored in tiles, kPartTiles of them a
+// block: a window longer than that is cut into parts of kPartTiles * kTile
+// bytes, one block each (kSplit, a template parameter), so its tiles go in
+// parallel instead of one after another; every part makes the same search,
+// and part 0 writes the counts.  A window of one part with K <= kThreads
+// (kPer 1, no kSplit) runs the code the kernel had before either; every
+// other window runs kPer = kMaxK / kThreads with kSplit.  All of it stays
+// correct for any input.
 
 #include <climits>
 #include <cstdint>
@@ -58,6 +67,12 @@ namespace {
 
 using namespace hh_window;
 
+// tiles of kTile bytes one block stages and stores: a window's part
+constexpr int kPartTiles = 4;
+constexpr int kPartBytes = kPartTiles * kTile;
+static_assert(kMaxK % kThreads == 0, "a thread holds kMaxK / kThreads applied variants");
+
+template <int kPer, bool kSplit>
 __global__ void __launch_bounds__(kThreads) window_kernel(
     const int8_t* __restrict__ genome, long long G,
     const int32_t* __restrict__ offsets,
@@ -67,15 +82,18 @@ __global__ void __launch_bounds__(kThreads) window_kernel(
     const int32_t* __restrict__ counts,   // (D*C,)
     int D, int C, int V, int NB1,
     const int32_t* __restrict__ donor, const int32_t* __restrict__ chrom,
-    const int32_t* __restrict__ start, int L, int K,
+    const int32_t* __restrict__ start, int L, int K, int parts,
     int8_t* __restrict__ hap1, int8_t* __restrict__ hap2,
     int32_t* __restrict__ n_variants, int32_t* __restrict__ overflow) {
-  static_assert(kMaxK <= kThreads, "a dense row's applied variants take one thread each");
   __shared__ __align__(16) int8_t planes[2][kPlane];
   int8_t* const pl0 = &planes[0][0];
   __shared__ int2 red[kThreads / 32];
 
-  const int b = blockIdx.x;
+  // a window a block, or (kSplit) a part of a window: its bytes [t_lo, t_hi)
+  const int b = kSplit ? blockIdx.x / parts : blockIdx.x;
+  const int part = kSplit ? blockIdx.x - b * parts : 0;
+  const int t_lo = kSplit ? part * kPartBytes : 0;
+  const int t_hi = kSplit ? min(L, t_lo + kPartBytes) : L;
   const int tid = threadIdx.x;
 
   // trip 1: the window's indices; out-of-range indices clamp, as the plain
@@ -105,7 +123,8 @@ __global__ void __launch_bounds__(kThreads) window_kernel(
   flat = min(max(flat, 0LL), G - L);
 
   // trip 3: the genome window's copy first, then the slice, in flight together
-  int head = stage_tile<kThreads>(pl0, kPlane, genome, G, flat, min(L, kTile), tid);
+  int head = stage_tile<kThreads>(pl0, kPlane, genome, G, flat + t_lo, min(t_hi - t_lo, kTile),
+                                  tid);
   const int32_t* prow = pos + row * V;
   const int16_t* srow = sub12 + row * V;
   const int n = e - a;
@@ -142,44 +161,55 @@ __global__ void __launch_bounds__(kThreads) window_kernel(
   const int n_in = max(hi - lo, 0);
   const int n_apply = min(n_in, K);
 
-  // this thread's applied variant i, if any: from the slice it holds, or
-  // loaded again for a dense row (i = tid < n_apply <= kMaxK <= kThreads)
-  int i;
-  bool has;
+  // this thread's applied variants: from the slice it holds, or, for a dense
+  // row, loaded again, i = tid + j kThreads for j < kPer (n_apply <= K <=
+  // kPer kThreads); the last applied variant at its position writes, at
+  // rel = p - s in [0, L), and -1 marks none
+  int rel[kPer], val[kPer];
   if (n > kThreads) {
-    i = tid;
-    has = tid < n_apply;
-    if (has) {
-      p = prow[lo + tid];
-      v = srow[lo + tid];
-      if (tid + 1 < n_apply) pn = prow[lo + tid + 1];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = tid + j * kThreads;
+      const bool has = i < n_apply;
+      int q = 0, qn = 0, u = 0;
+      if (has) {
+        q = prow[lo + i];
+        u = srow[lo + i];
+        if (i + 1 < n_apply) qn = prow[lo + i + 1];
+      }
+      rel[j] = has && (i + 1 == n_apply || qn != q) ? q - s : -1;
+      val[j] = u;
     }
   } else {
-    i = a + tid - lo;
-    has = mine && i >= 0 && i < n_apply;
+    const int i = a + tid - lo;
+    const bool has = mine && i >= 0 && i < n_apply;
+    rel[0] = has && (i + 1 == n_apply || pn != p) ? p - s : -1;
+    val[0] = v;
+#pragma unroll
+    for (int j = 1; j < kPer; ++j) rel[j] = -1;
   }
-  // the last applied variant at its position writes, at rel = p - s in [0, L)
-  const bool writes = has && (i + 1 == n_apply || pn != p);
-  const int rel = writes ? p - s : -1;
 
   int8_t* out1 = hap1 + (long long)b * L;
   int8_t* out2 = hap2 + (long long)b * L;
-  for (int t0 = 0; t0 < L; t0 += kTile) {
-    const int len = min(kTile, L - t0);
-    if (t0 > 0) {
+  for (int t0 = t_lo; t0 < t_hi; t0 += kTile) {
+    const int len = min(kTile, t_hi - t0);
+    if (t0 > t_lo) {
       __syncthreads();  // the last tile's stores are done with the planes
       head = stage_tile<kThreads>(pl0, kPlane, genome, G, flat + t0, len, tid);
       cp_async_wait_all();
       __syncthreads();
     }
-    if (writes && rel >= t0 && rel - t0 < len) {
-      planes[0][head + rel - t0] = static_cast<int8_t>(v & 0xFF);
-      planes[1][head + rel - t0] = static_cast<int8_t>(v >> 8);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (rel[j] >= t0 && rel[j] - t0 < len) {
+        planes[0][head + rel[j] - t0] = static_cast<int8_t>(val[j] & 0xFF);
+        planes[1][head + rel[j] - t0] = static_cast<int8_t>(val[j] >> 8);
+      }
     }
     __syncthreads();
     store_tile<kThreads>(pl0, kPlane, head, out1 + t0, out2 + t0, len, tid);
   }
-  if (tid == 0) {
+  if (tid == 0 && part == 0) {
     n_variants[b] = n_in;
     overflow[b] = max(n_in - K, 0);
   }
@@ -203,9 +233,16 @@ int hh_window_encode(const int8_t* genome, long long G, const int32_t* offsets,
                      void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (K < 1 || K > kMaxK || L < 1 || G < L || NB1 < 1) return (int)cudaErrorInvalidValue;
-  window_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
-      genome, G, offsets, pos, sub12, first, counts, D, C, V, NB1, donor, chrom,
-      start, L, K, hap1, hap2, n_variants, overflow);
+  const int parts = (L + kPartBytes - 1) / kPartBytes;
+  if ((long long)B * parts > INT_MAX) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  // a short window with K <= kThreads runs the kernel's one-part, one-variant
+  // code; any other, kPer applied variants a thread over parts
+  const auto kernel = K <= kThreads && parts == 1 ? &window_kernel<1, false>
+                                                  : &window_kernel<kMaxK / kThreads, true>;
+  kernel<<<B * parts, kThreads, 0, st>>>(genome, G, offsets, pos, sub12, first, counts, D, C, V,
+                                         NB1, donor, chrom, start, L, K, parts, hap1, hap2,
+                                         n_variants, overflow);
   return (int)cudaGetLastError();
 }
 

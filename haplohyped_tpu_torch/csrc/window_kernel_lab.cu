@@ -72,6 +72,9 @@ namespace {
 using namespace hh_window;
 
 constexpr int kMaxW = 32;
+// most variants the lab applies to a window: it measures the production
+// kernel's one-variant-a-thread code, K <= kThreads
+constexpr int kLabMaxK = 128;
 // compute_only: bp between synthetic variants (~1.2 SNVs per kb, as a
 // human genome against the reference)
 constexpr int kSynthStride = 833;
@@ -279,7 +282,7 @@ __global__ void __launch_bounds__(kThreads) lab_kernel(const LabArgs g) {
   int x = 0;  // dma_only's sink
   if (kVariant == kDmaOnly) {
     x = has ? p ^ v : 0;
-    if (kGS < kMaxK && n > kGS)
+    if (kGS < kLabMaxK && n > kGS)
       for (int k = lane + kGS; k < n_apply; k += kGS) x ^= pos_at(lo + k) ^ sub_at(lo + k);
     x = warp_xor<kWidth>(x);
     if (kGS > 32 && (tid & 31) == 0) xred[tid >> 5] = x;  // read after the next barrier
@@ -302,7 +305,7 @@ __global__ void __launch_bounds__(kThreads) lab_kernel(const LabArgs g) {
         pl0[head + rel - t0] = static_cast<int8_t>(v & 0xFF);
         pl0[stride + head + rel - t0] = static_cast<int8_t>(v >> 8);
       }
-      if (kGS < kMaxK && n > kGS) {  // n_apply <= K <= kMaxK
+      if (kGS < kLabMaxK && n > kGS) {  // n_apply <= K <= kLabMaxK
         for (int k = lane + kGS; k < n_apply; k += kGS) {
           const int q = pos_at(lo + k);
           if (k + 1 < n_apply && pos_at(lo + k + 1) == q) continue;  // not the last
@@ -414,7 +417,7 @@ int hh_window_lab(int variant, int w, const int8_t* genome, long long G,
                   int8_t* hap2, int32_t* n_variants, int32_t* overflow,
                   int32_t* sink, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (K < 1 || K > kMaxK || L < 1 || G < L || NB1 < 1 || SP < 1 || (SP & (SP - 1)) != 0 ||
+  if (K < 1 || K > kLabMaxK || L < 1 || G < L || NB1 < 1 || SP < 1 || (SP & (SP - 1)) != 0 ||
       w < 1 || w > kMaxW)
     return (int)cudaErrorInvalidValue;
   const LabArgs args{genome, G, offsets, pos, sub12, first, counts, D, C, V, NB1, SP,

@@ -1,3 +1,4 @@
+from haplohyped_tpu_torch.models.enformer import Enformer, EnformerConfig
 from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
 from haplohyped_tpu_torch.models.train import (
     TrainState,
@@ -7,6 +8,8 @@ from haplohyped_tpu_torch.models.train import (
 )
 
 __all__ = [
+    "Enformer",
+    "EnformerConfig",
     "HaploFormer",
     "HaploFormerConfig",
     "TrainState",

@@ -88,15 +88,18 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 class Dense(nn.Module):
     """flax ``nn.Dense`` and ``nn.DenseGeneral``: a ``kernel`` of shape
-    ``in_shape + out_shape`` and a ``bias`` of ``out_shape``, applied to
-    features flattened to ``(..., prod(in_shape))``."""
+    ``in_shape + out_shape`` and a ``bias`` of ``out_shape`` (none with
+    ``use_bias=False``), applied to features flattened to ``(...,
+    prod(in_shape))``.  ``init_scale`` multiplies the kernel's initial
+    standard deviation."""
 
     def __init__(self, in_shape: tuple, out_shape: tuple, dtype: torch.dtype,
-                 g: torch.Generator):
+                 g: torch.Generator, use_bias: bool = True, init_scale: float = 1.0):
         super().__init__()
         self.dtype = dtype
-        self.kernel = nn.Parameter(_lecun_normal((*in_shape, *out_shape), math.prod(in_shape), g))
-        self.bias = nn.Parameter(torch.zeros(out_shape))
+        self.kernel = nn.Parameter(
+            _lecun_normal((*in_shape, *out_shape), math.prod(in_shape), g) * init_scale)
+        self.bias = nn.Parameter(torch.zeros(out_shape)) if use_bias else None
         #: tensor parallelism over ``tp_group`` (set by ``Attention``/``Block``
         #: ``.tensor_parallel``): a column-sharded projection adds ``bias_rows``
         #: of its full bias, whose gradient the group sums; a row-sharded one
@@ -109,6 +112,8 @@ class Dense(nn.Module):
         dt = self.dtype
         w = self.kernel.reshape(x.shape[-1], -1).to(dt)
         b = self.bias
+        if b is None:
+            return F.linear(x.to(dt), w.t())
         if self.bias_rows is not None:
             b = copy_to_group(b, self.tp_group)[self.bias_rows]
         b = b.reshape(-1).to(dt)
@@ -138,14 +143,14 @@ class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: statistics and affine in float32, the result
     in the compute dtype."""
 
-    def __init__(self, d: int, dtype: torch.dtype):
+    def __init__(self, d: int, dtype: torch.dtype, eps: float = LN_EPS):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.eps = dtype, eps
         self.scale = nn.Parameter(torch.ones(d))
         self.bias = nn.Parameter(torch.zeros(d))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias, LN_EPS)
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias, self.eps)
         return y.to(self.dtype)
 
 

@@ -1,8 +1,15 @@
-"""HaploFormer's loss, train step and fused sample-into-train step,
-checkpoints, and the training loop over the sampler: the JAX package's
-``models/train.py`` in PyTorch.
+"""HaploFormer's and Enformer's loss, train step and fused
+sample-into-train step, checkpoints, and the training loop over the sampler:
+the JAX package's ``models/train.py`` in PyTorch, with Enformer added.
 
-bf16 compute, float32 parameters and AdamW state.  A step updates the
+A train state's model is the one its config names: ``HaploFormerConfig``
+builds HaploFormer with AdamW at optax's defaults, trained on the sampler's
+free labels; ``EnformerConfig`` builds Enformer with Adam (no weight decay)
+and the global gradient norm clipped where the config says, trained on
+targets the fused step's ``targets`` callback gives, its dropout drawn from
+a generator the state holds.
+
+bf16 compute, float32 parameters and optimiser state.  A step updates the
 module's parameters and the optimiser's state in place and returns its
 metrics as device tensors: no host round-trip happens inside a step.  Only
 ``train_on_sampler`` reads a loss on the host, at its logging steps.
@@ -31,6 +38,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from haplohyped_tpu_torch.core.config import resolve_device
 from haplohyped_tpu_torch.core.profiling import annotate
+from haplohyped_tpu_torch.models.enformer import Enformer, EnformerConfig, poisson_loss
 from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
 from haplohyped_tpu_torch.ops.haplotype_window import windows_to_onehot
 from haplohyped_tpu_torch.parallel import distributed
@@ -51,14 +59,16 @@ CHECKPOINT_FILE = "train_state.pt"
 
 
 class TrainState(NamedTuple):
-    """The model, its optimiser, the number of steps taken, and the mesh the
-    model is sharded over (None: unsharded).  A step returns a new tuple
-    around the same (updated) module and optimiser."""
+    """The model, its optimiser, the number of steps taken, the mesh the
+    model is sharded over (None: unsharded) and the generator its dropout
+    draws from (None: no dropout).  A step returns a new tuple around the
+    same (updated) module, optimiser and generator."""
 
-    model: HaploFormer
-    optimizer: torch.optim.AdamW
+    model: HaploFormer | Enformer
+    optimizer: torch.optim.Optimizer
     step: int
     mesh: DeviceMesh | None = None
+    generator: torch.Generator | None = None
 
 
 def token_targets(hap1: torch.Tensor, T: int, pool: int, num_channels: int) -> torch.Tensor:
@@ -70,11 +80,19 @@ def token_targets(hap1: torch.Tensor, T: int, pool: int, num_channels: int) -> t
     return oh[:, : T * pool].reshape(B, T, pool, C).sum(dim=2).argmax(dim=-1)
 
 
-def loss_fn(model: HaploFormer, hap1, hap2, n_variants):
-    """``(loss, {"reg", "ce"})``: ``0.01 * reg + ce``, with ``reg`` the MSE
-    of the variant count against ``n_variants`` (free labels from the
-    sampler) and ``ce`` the cross-entropy of the token head against
-    :func:`token_targets` of hap1."""
+def loss_fn(model: HaploFormer | Enformer, hap1, hap2, n_variants, targets=None,
+            generator: torch.Generator | None = None):
+    """HaploFormer: ``(loss, {"reg", "ce"})``, ``0.01 * reg + ce``, with
+    ``reg`` the MSE of the variant count against ``n_variants`` (free labels
+    from the sampler) and ``ce`` the cross-entropy of the token head against
+    :func:`token_targets` of hap1.  Enformer: ``(loss, {})``, the Poisson
+    loss of the pair's rates against ``targets`` ``(B, target_length,
+    tracks)``, its dropout drawn from ``generator``."""
+    if isinstance(model, Enformer):
+        if targets is None:
+            raise ValueError("Enformer trains on targets: give make_fused_train_step "
+                             "a targets callback, or the train step targets=")
+        return poisson_loss(model(hap1, hap2, generator)["rates"], targets), {}
     out = model(hap1, hap2)
     reg = ((out["variant_count"] - n_variants.float()) ** 2).mean()
     logits = out["base_logits"]
@@ -85,19 +103,24 @@ def loss_fn(model: HaploFormer, hap1, hap2, n_variants):
 
 
 def create_train_state(
-    cfg: HaploFormerConfig,
+    cfg: HaploFormerConfig | EnformerConfig,
     sample_batch: tuple,
     learning_rate: float = 3e-4,
     seed: int | torch.Generator = 0,
     device: str | torch.device = "cuda",
     mesh: DeviceMesh | None = None,
 ) -> TrainState:
-    """A model built for ``sample_batch``'s window length (``(hap1, hap2)``,
-    as flax's ``init`` takes its shapes from it), initialised from ``seed``,
-    with ``AdamW`` at optax's defaults over every parameter in one group
-    (optax applies no mask: biases, norms and ``pos_embed`` decay too).
-    With ``mesh`` (on ``device``'s kind), every rank builds the same model
-    and keeps its ``model`` shards of it."""
+    """The model ``cfg`` names, initialised from ``seed``.  HaploFormer is
+    built for ``sample_batch``'s window length (``(hap1, hap2)``, as flax's
+    ``init`` takes its shapes from it), with ``AdamW`` at optax's defaults
+    over every parameter in one group (optax applies no mask: biases, norms
+    and ``pos_embed`` decay too).  With ``mesh`` (on ``device``'s kind),
+    every rank builds the same model and keeps its ``model`` shards of it.
+    Enformer takes windows of ``cfg.sequence_length``, trains with ``Adam``
+    (no weight decay), and draws its dropout from a generator on ``device``
+    seeded from ``seed``; it takes no mesh."""
+    if isinstance(cfg, EnformerConfig):
+        return _create_enformer_state(cfg, sample_batch, learning_rate, seed, device, mesh)
     with annotate("hh.train.create_state"):
         model = HaploFormer(cfg, sample_batch[0].shape[1], seed, device=device)
         if mesh is not None:
@@ -106,6 +129,24 @@ def create_train_state(
             shard_model(model, mesh)
         optimizer = torch.optim.AdamW(model.parameters(), lr=learning_rate, **ADAMW)
     return TrainState(model, optimizer, 0, mesh)
+
+
+def _create_enformer_state(cfg: EnformerConfig, sample_batch: tuple, learning_rate: float,
+                           seed: int | torch.Generator, device, mesh) -> TrainState:
+    if mesh is not None:
+        raise ValueError("Enformer trains on one device: its batch norm takes the local "
+                         "batch's statistics, and no tensor-parallel rules cut its layers")
+    if sample_batch[0].shape[1] != cfg.sequence_length:
+        raise ValueError(f"windows of {sample_batch[0].shape[1]} bp for an Enformer of "
+                         f"sequence_length={cfg.sequence_length}")
+    dev = resolve_device(device)
+    with annotate("hh.train.create_state"):
+        model = Enformer(cfg, seed, device=dev)
+        optimizer = torch.optim.Adam(model.parameters(), lr=learning_rate, betas=ADAMW["betas"],
+                                     eps=ADAMW["eps"], weight_decay=0.0)
+        s = seed.initial_seed() if isinstance(seed, torch.Generator) else seed
+        generator = torch.Generator(device=dev).manual_seed(s)
+    return TrainState(model, optimizer, 0, None, generator)
 
 
 def _average_over_data(params: list, metrics: dict, mesh: DeviceMesh) -> dict:
@@ -124,7 +165,8 @@ def _average_over_data(params: list, metrics: dict, mesh: DeviceMesh) -> dict:
     return dict(zip(metrics, parts[-1].unbind()))
 
 
-def _train_step(state: TrainState, hap1, hap2, n_variants, mesh: DeviceMesh | None = None):
+def _train_step(state: TrainState, hap1, hap2, n_variants, mesh: DeviceMesh | None = None,
+                targets=None):
     if state.mesh is not mesh:
         raise ValueError("the train state was made for another mesh than the step's")
     with annotate("hh.train.step"):
@@ -132,22 +174,26 @@ def _train_step(state: TrainState, hap1, hap2, n_variants, mesh: DeviceMesh | No
             block = shard_batch_spec(mesh)
             hap1, hap2, n_variants = (block.local(t) for t in (hap1, hap2, n_variants))
         with annotate("hh.train.forward"):
-            loss, aux = loss_fn(state.model, hap1, hap2, n_variants)
+            loss, aux = loss_fn(state.model, hap1, hap2, n_variants, targets, state.generator)
         with annotate("hh.train.backward"):
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
         if mesh is not None:
             metrics = _average_over_data(list(state.model.parameters()), metrics, mesh)
+        clip = getattr(state.model.cfg, "clip_global_norm", None)
+        if clip is not None:
+            with annotate("hh.train.clip"):
+                torch.nn.utils.clip_grad_norm_(state.model.parameters(), clip, foreach=True)
         with annotate("hh.train.optimizer"):
             state.optimizer.step()
-    return TrainState(state.model, state.optimizer, state.step + 1, mesh), metrics
+    return state._replace(step=state.step + 1), metrics
 
 
 def make_train_step(mesh: DeviceMesh | None = None):
-    """``step(state, hap1, hap2, n_variants) -> (state, metrics)``: one
-    AdamW step on the batch; ``metrics`` holds ``loss``, ``reg`` and ``ce``
-    as device tensors.  The module and optimiser travel in the state, so
+    """``step(state, hap1, hap2, n_variants, targets=None) -> (state,
+    metrics)``: one optimiser step on the batch; ``metrics`` holds ``loss``
+    (and HaploFormer's ``reg`` and ``ce``) as device tensors.  The module and optimiser travel in the state, so
     only the mesh is bound here (the JAX package binds the model and
     optimiser into its jitted step).  With ``mesh``, the batch is the global
     one and the state must be :func:`create_train_state`'s for that mesh."""
@@ -156,18 +202,25 @@ def make_train_step(mesh: DeviceMesh | None = None):
     return functools.partial(_train_step, mesh=mesh)
 
 
-def make_fused_train_step(sampler, mesh: DeviceMesh | None = None):
+def make_fused_train_step(sampler, mesh: DeviceMesh | None = None, targets=None):
     """``fused(state, step_idx) -> (state, metrics)``: build sampling step
     ``step_idx``'s batch on the device (``sampler.batch_at``: on CUDA one
     draw-kernel launch, which crops the windows too, and the window kernel in
     codes mode) and take one train step on it; equal to the batch
     ``sampler.sample()`` gives at that step followed by the train step.
-    With ``mesh`` every rank draws the global batch and trains on its block."""
+    With ``mesh`` every rank draws the global batch and trains on its block.
+    ``targets(step_idx, batch) -> tensor``, called after sampling, gives the
+    step's targets (Enformer's tracks, which a deployment reads per donor and
+    region), under the span ``hh.train.targets``."""
 
     def fused(state: TrainState, step_idx: int):
         with annotate("hh.train.fused_step"):
             b = sampler.batch_at(step_idx)
-            return _train_step(state, b.hap1, b.hap2, b.n_variants, mesh)
+            if targets is None:
+                return _train_step(state, b.hap1, b.hap2, b.n_variants, mesh)
+            with annotate("hh.train.targets"):
+                y = targets(step_idx, b)
+            return _train_step(state, b.hap1, b.hap2, b.n_variants, mesh, targets=y)
 
     return fused
 
@@ -228,7 +281,7 @@ def restore_checkpoint(path: str, template: TrainState) -> TrainState:
     model_sd, opt_sd = _local_state(template, ckpt["model"], ckpt["optimizer"])
     template.model.load_state_dict(model_sd)
     template.optimizer.load_state_dict(opt_sd)
-    return TrainState(template.model, template.optimizer, int(ckpt["step"]), template.mesh)
+    return template._replace(step=int(ckpt["step"]))
 
 
 def train_on_sampler(

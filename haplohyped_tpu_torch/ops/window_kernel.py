@@ -36,8 +36,8 @@ from haplohyped_tpu_torch.ops.haplotype_window import (
 #: the kernel's kBK, held against it when the library loads
 BK = 12
 
-#: the kernel applies at most this many variants per window
-K_MAX = 128
+#: the kernel applies at most this many variants per window (its kMaxK)
+K_MAX = 512
 
 
 class WindowIndex(NamedTuple):
@@ -100,8 +100,9 @@ def build_window_index(genome, offsets, pos, ref, alt, p1, p2, counts) -> Window
     return WindowIndex(genome, offsets, pos, ref, alt, p1, p2, counts, sub12, first)
 
 
-def _check(index: WindowIndex, donor_idx, chrom_idx, start, L: int, K: int):
-    """Raise on what the kernel does not take."""
+def _check(index: WindowIndex, donor_idx, chrom_idx, start, L: int, K: int, k_max: int = K_MAX):
+    """Raise on what the kernel (which applies up to ``k_max`` variants a
+    window) does not take."""
     dev = start.device
     want = {
         "genome": torch.int8, "offsets": torch.int32, "pos": torch.int32,
@@ -132,8 +133,8 @@ def _check(index: WindowIndex, donor_idx, chrom_idx, start, L: int, K: int):
                          f"got {tuple(index.first.shape)}")
     if donor_idx.shape != (B,) or chrom_idx.shape != (B,):
         raise ValueError("donor_idx and chrom_idx must be (B,), like start")
-    if not 1 <= K <= K_MAX:
-        raise ValueError(f"K={K} outside [1, {K_MAX}]")
+    if not 1 <= K <= k_max:
+        raise ValueError(f"K={K} outside [1, {k_max}]")
     if not 1 <= L <= G:
         raise ValueError(f"L={L} outside [1, G={G}]")
     if V < 1 or D * C * V >= 2**63 or max(V, B) >= 2**31:

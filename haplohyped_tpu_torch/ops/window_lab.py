@@ -49,6 +49,8 @@ from haplohyped_tpu_torch.ops.window_kernel import BK, WindowIndex, _check
 VARIANTS = ("full", "dma_only", "compute_only")
 #: windows per block of 128 threads the kernel takes
 WINDOWS_PER_BLOCK = (1, 2, 4, 8, 16, 32)
+#: the lab kernel applies at most this many variants a window (its kLabMaxK)
+LAB_K_MAX = 128
 #: dma_only's default grid stride: its n_variants and overflow read the row
 #: at lo0, a multiple of SP
 SP = 512
@@ -211,7 +213,7 @@ def encode_windows_lab(
         raise ValueError(f"no lab kernel for device {start.device}")
     if sp < 1 or sp & (sp - 1):
         raise ValueError(f"sp={sp} must be a power of two")
-    _check(index, donor_idx, chrom_idx, start, L, K)
+    _check(index, donor_idx, chrom_idx, start, L, K, LAB_K_MAX)
     D, C, V = index.pos.shape
     if variant == "compute_only" and V * SYNTH_STRIDE >= 2**31:
         raise ValueError(f"V={V} too large for synthetic positions i * {SYNTH_STRIDE} in int32")

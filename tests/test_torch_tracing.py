@@ -234,3 +234,93 @@ def test_the_data_parallel_exchange_is_a_span_with_its_bytes():
         assert rows[r["parent"]]["name"] == "hh.train.step"
         assert (rows[i - 1]["name"], rows[i + 1]["name"]) == ("hh.train.backward",
                                                               "hh.train.optimizer")
+
+
+#: (span, parent) of one Enformer fused step, in the order the spans open
+ENFORMER_TREE = [
+    ("hh.train.fused_step", None),
+    ("hh.sampler.batch", "hh.train.fused_step"),
+    ("hh.train.targets", "hh.train.fused_step"),
+    ("hh.train.step", "hh.train.fused_step"),
+    ("hh.train.forward", "hh.train.step"),
+    ("hh.enformer.stem", "hh.train.forward"),
+    ("hh.enformer.conv_tower", "hh.train.forward"),
+    ("hh.enformer.transformer", "hh.train.forward"),
+    ("hh.enformer.head", "hh.train.forward"),
+    ("hh.train.backward", "hh.train.step"),
+    ("hh.train.clip", "hh.train.step"),
+    ("hh.train.optimizer", "hh.train.step"),
+]
+
+
+def test_an_enformer_step_records_its_spans_where_they_belong():
+    """The model's four stages inside the forward, the clip between the
+    backward and the optimiser, the targets after the sampler's batch."""
+    from tests.test_torch_enformer import B, CFG, L
+    from tests.test_torch_train import cpu_sampler
+
+    sampler = cpu_sampler(L=L, batch_size=B, seed=6)
+    x = torch.zeros((B, L), dtype=torch.int8)
+    state = train.create_train_state(CFG, (x, x), 5e-4, seed=3, device="cpu")
+    y = torch.ones((B, CFG.target_length, CFG.num_tracks))
+    step = train.make_fused_train_step(sampler, targets=lambda i, b: y)
+    with recording() as rec:
+        for i in (0, 1):
+            state, _ = step(state, i)
+    assert _tree(rec.rows()) == ENFORMER_TREE * 2
+    for s in rec.spans:
+        if s.parent is not None:
+            assert s.parent.start_ns <= s.start_ns and s.end_ns <= s.parent.end_ns
+
+
+def test_the_enformer_readers_on_a_cpu_run_and_on_nothing(tmp_path):
+    """A traced CPU run of the Enformer cell at toy size: the host-clock
+    metrics (the step's share of the peak, the sampler's and the step's
+    host ms) read numbers; the span and kernel readers, whose numbers are
+    the card's device times, read none on the CPU, and none with nothing
+    recorded; each reads its number from a record that holds one."""
+    from portbench.run import run_cell
+    from portbench.tests.conftest import DEVICE, SEED
+    from portbench.tests.test_portbench_enformer import CELL, HOST_CLOCK, make_tiny_enformer
+
+    cat = make_tiny_enformer(tmp_path)
+    out = run_cell(cat, CELL, SEED, 0.2, True, DEVICE)["result"]
+    assert out["correct"] and all(out["metrics"][k]["value"] > 0 for k in HOST_CLOCK)
+    device_metrics = ("tower_fwd_device_ms.enformer", "transformer_fwd_device_ms.enformer",
+                      "window_roofline.enformer")
+    assert not set(device_metrics) & set(out["metrics"])
+    rec = {"spans": {"program": {"hh.enformer.stem": 3.0, "hh.enformer.conv_tower": 9.0,
+                                 "hh.enformer.transformer": 5.0}, "program_steps": 2},
+           "counts": {"window_bytes": 3.35e6},
+           "profile": {"device": [("void (anonymous namespace)::window_kernel<4>(...)", 0, 10),
+                                  ("void (anonymous namespace)::window_kernel<4>(...)", 20, 30),
+                                  ("lab_kernel_variant<0, 1>", 0, 1), ("gemm", 0, 5)]}}
+    assert cat.reader("tower_fwd_device_ms.enformer")(rec) == 6.0
+    assert cat.reader("transformer_fwd_device_ms.enformer")(rec) == 2.5
+    # 3.35 MB in 10 us a launch at 3.35 TB/s: 10% of the bound
+    assert cat.reader("window_roofline.enformer")(rec) == pytest.approx(10.0)
+    for name in device_metrics + HOST_CLOCK:
+        assert cat.reader(name)({"spans": {}, "counts": {}}) is None
+
+
+def test_the_frozen_enformer_count_is_a_hand_count():
+    """``portbench/counts_enformer.py`` at the small size against the
+    model's multiply-adds written out layer by layer."""
+    from portbench.counts_enformer import train_flops_per_step
+    from tests.test_torch_enformer import B, CFG, HEADS, M
+
+    L, C, H, K, V, R = 8192, 64, 2, 8, 32, 12
+    filters = [32, 32, 48, 48, 48, 64]  # exponential_linspace_int(32, 64, 6, 16)
+    mac = L * 15 * 4 * 32 + 2 * L * 32 * 32  # stem conv; pointwise conv and pool logits
+    n, c = L // 2, 32
+    for f in filters:
+        mac += n * 5 * c * f + 2 * n * f * f
+        n, c = n // 2, f
+    T = n
+    attn = (T * C * H * (2 * K + V) + H * T * T * K + H * T * (2 * T - 1) * K + H * T * T * V
+            + T * H * V * C)
+    mac += 2 * (attn + 2 * T * C * 2 * C)  # 2 blocks
+    mac += 32 * C * 2 * C + 32 * 2 * C * 7  # final pointwise conv, head
+    per_forward = 2 * B * mac + 2 * (2 * T - 1) * R * H * K  # relative keys, batch-free
+    assert CFG.filter_list == filters and T == 64
+    assert train_flops_per_step(M, HEADS, B) == 3 * 2 * per_forward
