@@ -47,9 +47,15 @@ generator seeded alike draws the same masks.
 
 The cast rules are HaploFormer's (``models/haploformer.py``): float32
 parameters, every op in ``cfg.compute_dtype``, batch and layer norms with
-float32 statistics and affine, the rates float32.  The conv tower runs
-channels-first, ``(N, C, L)``; the transformer token-major, ``(N, T, C)``.
-No op here is a hand-written kernel.
+float32 statistics and affine, the rates float32.
+
+Layouts: every activation of the stem and the conv tower is a contiguous
+channels-first ``(N, C, L)`` tensor, and each op there reads and writes it
+in place.  The softmax pooling's logits GEMM (:class:`PoolingLogits`)
+reads it as it lies, in the forward and in the backward, so no pooled
+activation is copied into another layout.  The transformer runs
+token-major, ``(N, T, C)``, from one copy at the hand-over.  No op here is
+a hand-written kernel.
 """
 
 from __future__ import annotations
@@ -192,10 +198,41 @@ class ConvBlock(nn.Module):
         return self.conv(gelu(self.norm(x)))
 
 
+class PoolingLogits(torch.autograd.Function):
+    """``kernelᵀ @ x[n]`` for each of the N sequences of a contiguous ``(N, C,
+    L)`` ``x``: batched GEMMs that read and write the tower's layout, forward
+    and backward, so no operand is transposed into a copy.
+
+    The kernel's gradient ``Σ_n x[n] @ grad[n]ᵀ`` is one float32 reduction
+    over all N·L positions (cuBLAS reads ``grad[n]ᵀ`` as a transpose flag),
+    rounded to the kernel's dtype once, as one ``mm`` over the N·L positions
+    folded together rounds it; N products rounded to bf16 apart and then
+    summed would round it N more times.  The CPU has no float32-output
+    ``bmm`` of bf16 operands, so there the operands are widened first: the
+    same products, summed in float32."""
+
+    @staticmethod
+    def forward(ctx, kernel: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(kernel, x)
+        return torch.bmm(kernel.t().expand(x.shape[0], -1, -1), x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        kernel, x = ctx.saved_tensors
+        if x.is_cuda:
+            partial = torch.bmm(x, grad.mT, out_dtype=torch.float32)
+        else:
+            partial = torch.bmm(x.float(), grad.float().mT)
+        grad_x = torch.bmm(kernel.expand(x.shape[0], -1, -1), grad)
+        return partial.sum(0).to(kernel.dtype), grad_x
+
+
 class SoftmaxPooling(nn.Module):
     """``SoftmaxPooling1D(2)``, per channel: pairs of positions of ``(N, C,
     L)`` summed under the softmax over the pair of ``x @ kernel``; the
-    ``(C, C)`` kernel has no bias and starts at ``2 I``."""
+    ``(C, C)`` kernel has no bias and starts at ``2 I``.  The logits come
+    from :class:`PoolingLogits`, so they are contiguous ``(N, C, L)`` and the
+    softmax, the product and the sum read and write in that layout."""
 
     def __init__(self, c: int, dtype: torch.dtype):
         super().__init__()
@@ -204,7 +241,7 @@ class SoftmaxPooling(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         N, C, L = x.shape
-        logits = torch.matmul(self.kernel.to(self.dtype).t(), x)  # (N, C, L)
+        logits = PoolingLogits.apply(self.kernel.to(self.dtype), x)  # (N, C, L)
         w = torch.softmax(logits.view(N, C, L // 2, 2), dim=-1)
         return (x.view(N, C, L // 2, 2) * w).sum(-1)
 

@@ -21,6 +21,13 @@ The positional bases, in float64, are held to their closed forms (the
 gamma density from ``scipy.stats``) at ``1e-6`` relative, and the float32
 features to the reference's at ``1e-5``; ``relative_shift`` to an index
 gather exactly.
+
+The softmax pooling's logits (``PoolingLogits``, a batched GEMM on the
+tower's ``(N, C, L)`` layout) are held to the ``torch.matmul`` fold form
+they replaced, which copied every pooled activation into another layout:
+a dispatch-level audit counts those copies and strided adds (none now, 3
+and 1 a pooling in the fold form), and the two forms agree bit for bit but
+for the pooling kernels' gradients, which round one float32 sum once.
 """
 
 import math
@@ -30,6 +37,8 @@ import numpy as np
 import pytest
 import scipy.stats
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from haplohyped_tpu_torch.models import enformer as E
 from haplohyped_tpu_torch.models import train
@@ -50,10 +59,10 @@ B, L = 2, 8192
 SEED = 2**31 + 77
 
 
-def _model(seed=SEED):
+def _model(seed=SEED, cfg=CFG):
     init = weights.make(ref.param_specs(M, HEADS), seed, torch.device("cpu"))
     x = torch.zeros((B, L), dtype=torch.int8)
-    state = train.create_train_state(CFG, (x, x), OPT["learning_rate"], seed=seed, device="cpu")
+    state = train.create_train_state(cfg, (x, x), OPT["learning_rate"], seed=seed, device="cpu")
     with torch.no_grad():
         for k, p in state.model.named_parameters():
             p.copy_(init[k])
@@ -241,3 +250,134 @@ def test_eval_mode_takes_the_moving_statistics_and_no_dropout():
     state.model.train()
     c = state.model(h1, h2)["rates"]
     assert not torch.allclose(a, c)
+
+
+def _fold_pooling(self, x):
+    """``SoftmaxPooling.forward`` with its logits from ``torch.matmul(kernelᵀ,
+    x)``, which folds the N sequences into one ``mm`` over ``x``'s transposed
+    copy and makes its result contiguous with a second copy."""
+    N, C, L = x.shape
+    logits = torch.matmul(self.kernel.to(self.dtype).t(), x)
+    w = torch.softmax(logits.view(N, C, L // 2, 2), dim=-1)
+    return (x.view(N, C, L // 2, 2) * w).sum(-1)
+
+
+def _pooling_shapes(cfg, n):
+    """Each pooling's input (and logits) shape and that shape transposed."""
+    shapes = [(n, cfg.channels // 2, cfg.sequence_length)] + [
+        (n, f, cfg.sequence_length >> (i + 1)) for i, f in enumerate(cfg.filter_list)]
+    return set(shapes) | {(a, c, b) for a, b, c in shapes}
+
+
+class _PoolingAudit(TorchDispatchMode):
+    """Below autograd, the copies made from a non-contiguous tensor of one of
+    ``shapes`` (``copies``) and the adds that receive one (``adds``)."""
+
+    COPIES = {"clone", "copy_", "_to_copy"}
+    ADDS = {"add", "add_"}
+
+    def __init__(self, shapes):
+        super().__init__()
+        self.shapes, self.copies, self.adds = shapes, [], []
+
+    def _strided(self, t):
+        return isinstance(t, torch.Tensor) and tuple(t.shape) in self.shapes and not t.is_contiguous()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func.overloadpacket.__name__
+        if name in self.COPIES:
+            source = args[1] if name == "copy_" else args[0]
+            if self._strided(source):
+                self.copies.append((name, tuple(source.shape), source.stride()))
+        if name in self.ADDS:
+            self.adds += [(name, tuple(t.shape), t.stride()) for t in tree_leaves((args, kwargs))
+                          if self._strided(t)]
+        return func(*args, **kwargs)
+
+
+def _audit_pooling(model, h1, h2, y):
+    with _PoolingAudit(_pooling_shapes(model.cfg, 2 * h1.shape[0])) as audit:
+        E.poisson_loss(model(h1, h2)["rates"], y).backward()
+    return audit
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_pooling_reads_the_tower_in_place(device, monkeypatch):
+    """The mechanism's counter: in a bf16 forward and backward of
+    ``poisson_loss`` no copy is made from, and no add receives, a
+    non-contiguous tensor of a pooling's input or logits shape or of that
+    shape transposed; the fold form makes 3 such copies and 1 such add a
+    pooling, which the audit counts."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = E.EnformerConfig(**{**SMALL, "dtype": "bfloat16"}, heads=HEADS)
+    model = E.Enformer(cfg, seed=SEED, device=device)
+    h1, h2, y = (t.to(device) for t in _windows(1))
+    audit = _audit_pooling(model, h1, h2, y)
+    assert audit.copies == [] and audit.adds == []
+
+    model.zero_grad(set_to_none=True)
+    monkeypatch.setattr(E.SoftmaxPooling, "forward", _fold_pooling)
+    fold = _audit_pooling(model, h1, h2, y)
+    pools = 1 + cfg.tower_stages
+    assert len(fold.copies) == 3 * pools and len(fold.adds) == pools
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_pooling_matches_the_fold_form(dtype, monkeypatch):
+    """Against ``torch.matmul``'s fold form, on the reference's weights
+    (biases and norm affines off their initial values): the rates, the loss
+    and every gradient but the pooling kernels' are bit-equal.  A pooling
+    kernel's gradient is one float32 reduction rounded once on both sides,
+    summed in another order: in float32 within 1e-4 of its norm; in bf16
+    each element equal or one rounding step apart, at most 1% of them apart
+    (bf16 partials summed per sequence move 39-42% of them).  One step of
+    one element of the stem's 32 × 32 kernel is already 3e-4 of its norm."""
+    cfg = E.EnformerConfig(**{**SMALL, "dtype": dtype}, heads=HEADS)
+    h1, h2, y = _windows(5)
+
+    def run():
+        state, _ = _model(cfg=cfg)
+        out = state.model(h1, h2)["rates"]
+        loss = E.poisson_loss(out, y)
+        loss.backward()
+        return out, loss, {k: p.grad for k, p in state.model.named_parameters()}
+
+    out, loss, grads = run()
+    monkeypatch.setattr(E.SoftmaxPooling, "forward", _fold_pooling)
+    fold_out, fold_loss, fold_grads = run()
+    assert torch.equal(out, fold_out) and torch.equal(loss, fold_loss)
+    pools = {k for k in grads if k.endswith("pool.kernel")}
+    assert len(pools) == 1 + cfg.tower_stages
+    for k, g in grads.items():
+        f = fold_grads[k]
+        if k not in pools:
+            assert torch.equal(g, f), k
+        elif dtype == "float32":
+            assert float((g - f).norm()) <= 1e-4 * float(f.norm()), k
+        else:
+            assert float((g != f).float().mean()) <= 0.01, k
+            assert bool(((g - f).abs() <= torch.finfo(torch.bfloat16).eps * f.abs()).all()), k
+
+
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("c", [16, 48])
+def test_pooling_logits_function(n, c):
+    """``PoolingLogits`` in bf16 against ``torch.matmul`` and float64: the
+    logits and ``x``'s gradient equal the fold form's and are contiguous;
+    the kernel's gradient is the exact sum rounded to bf16 once: each
+    element within bf16's unit roundoff of it, past float32's accumulation."""
+    g = torch.Generator().manual_seed(100 * n + c)
+    kernel = torch.randn(c, c, generator=g).bfloat16().requires_grad_()
+    x = torch.randn(n, c, 512, generator=g).bfloat16().requires_grad_()
+    grad = torch.randn(n, c, 512, generator=g).bfloat16()
+    out = E.PoolingLogits.apply(kernel, x)
+    gk, gx = torch.autograd.grad(out, (kernel, x), grad)
+    fold = torch.matmul(kernel.t(), x)
+    fx = torch.autograd.grad(fold, x, grad)[0]
+    assert out.is_contiguous() and gx.is_contiguous() and gk.dtype == torch.bfloat16
+    assert torch.equal(out, fold) and torch.equal(gx, fx)
+    exact = torch.einsum("ncl,njl->cj", x.detach().double(), grad.double())
+    slack = 2.0**-8 * exact.abs() + 1e-6 * float(exact.norm()) / c
+    assert bool(((gk.double() - exact).abs() <= slack).all())
