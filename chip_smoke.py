@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--seed N] [--train-times | --parallel DIR | --long-windows]
+    python3 chip_smoke.py [--seed N] [--phase NAME]
 
-Phases (any failure exits non-zero; nothing is caught):
+This is the card's correctness check: every kernel bit-equal to its plain
+version at full size, and the paths around them.  Speed is measured by the
+benchmark, ``portbench/run.py``.  Phases, numbered as the tests and documents
+cite them (there is no phase 6; any failure exits non-zero; nothing is caught):
 
 1. Build every CUDA kernel of ``haplohyped_tpu_torch/csrc`` (one ``nvcc``
    each) and the native VCF framer from ``cpp/`` (one ``g++``), all started
@@ -32,22 +35,13 @@ Phases (any failure exits non-zero; nothing is caught):
    table's boundaries, a slice longer than the block with duplicate runs cut
    by K, starts past a row's last position, past the table and at the int32
    extremes, and every B in {1, 61, 64, 4096} x L in {256, 333, 1000, 2049,
-   4080} x K in {8, 64, 128} on the deployment state.
+   4080} x K in {8, 64, 128} on the deployment state; then the main path's
+   two launch shapes, B=64 (``sample()``) and B=1,024 (``sample_many(16)``)
+   at L=1000, K=128, on four batches each of the sampler's draws of later
+   steps, with ``window_bounds``' count equal to the kernel's ``n_variants``.
 5. ``DeviceHaplotypeSampler.from_files`` on small gzip HDF5 files in the
    reference layout, one batch against the plain version (where h5py is
    installed).
-6. Times on the card: the kernel and the plain version per batch at the
-   main path's two launch shapes, B=64 (``sample()``) and B=1024
-   (``sample_many(16)``) (device busy time from ``torch.profiler``; the
-   kernel also back to back behind a sleep kernel with CUDA events), the
-   wrapper's host time, the kernel's bound, the slice of the row it reads,
-   a launch floor (``fill_`` of a (B,) int32 tensor, timed the same two
-   ways), ``sample_many`` windows/s and ``sample()`` ms (host clock), and a
-   ``torch.profiler`` trace of ``sample_many``.  The draw kernel at 64, 1,024
-   and 16,384 lanes on fresh keys: back to back behind a sleep kernel (CUDA
-   events), from the profiler and in a CUDA graph, the wrapper's host time,
-   the plain version's device (profiler) and host time, and its bound (the
-   int32 work the draws need at 64 lanes an SM, or bytes).
 7. Converter input from ``--seed``, under the git-ignored build directory: a
    BGZF chr1 cohort VCF of 6,468,094 records (1000 Genomes Phase 3 chr1)
    over GRCh38 chr1's length, 8 samples, with SNVs, indels, multi-allelic
@@ -95,14 +89,7 @@ Phases (any failure exits non-zero; nothing is caught):
    version.  The model on the card against the CPU from one seed's params:
    d_model 64 x 2 layers in float32 with TF32 off (largest relative error
    within ``F32_TOL``) and the default configuration in bf16 against
-   float32 (``BF16_TOL``).  A checkpoint round trip.  Then the times, in a
-   process of their own (``--train-times``, which runs that part alone): ms
-   a train step on batches sampled beforehand and a fused step, windows/s
-   consumed beside ``sample_many(16)``'s, ``mfu`` against 989 TFLOP/s bf16,
-   device busy time, idle share and device ops a step (``torch.profiler``),
-   peak memory, each stage of a fused step between synchronizes; ms a step,
-   ``mfu`` and a trace of the JAX bench's scaled point (d_model 512, 8
-   layers, B=256).
+   float32 (``BF16_TOL``).  A checkpoint round trip.
 14. The single-pass converter (``VCFtoHDF5Converter`` on its default flags,
    ``device="cuda"``), which runs torch ops on the card and no Hopper kernel
    (the launch counts, set to 0 before it, stay 0): ``convert_chromosome(1,
@@ -188,17 +175,11 @@ Phases (any failure exits non-zero; nothing is caught):
    raising on any host round-trip; two key-less calls give two digests and
    advance the step, two calls of one key one digest; a link's draws from
    the card's last key and digest equal to the CPU's; ``emit_onehot`` at (2,
-   2) on a sampler of its own, graph against eager.  Times:
-   ``sample_chain(16, 256)`` (the JAX bench's chain) a call with its digest
-   fetch (median of 12, host clock) and device-resident windows/s, in turns
-   with ``sample_many(16)``; its device ms a call and a link (CUDA events);
-   the window kernel and the draw kernel at a link's B = 16,384 (CUDA
-   events) beside their bounds, and a link split by CUDA events over CUDA
-   graphs of one piece each: the draw kernel, the window kernel and
-   ``chain_digest``.  At that timed shape too, the
-   graph's ``chain_run(16, 256, key=k)`` equal to the eager plain chain
-   (digest, keys, the last link's 16,384 windows) and two of the timed
-   B = 16,384 launches bit-equal to the plain version.
+   2) on a sampler of its own, graph against eager.  At the JAX bench's
+   chain (16, 256): the graph's ``chain_run(16, 256, key=k)`` equal to the
+   eager plain chain (digest, keys, the last link's 16,384 windows), and two
+   window-kernel launches at a link's B = 16,384 bit-equal to the plain
+   version.
 19. The window kernel at long windows and past 128 variants, bit-equal to
    the plain version, its launch count set to 0 just before each call and
    read just after (one launch a call): Enformer's window pairs, B=2 at
@@ -207,21 +188,23 @@ Phases (any failure exits non-zero; nothing is caught):
    64}; B in {1, 61} x L in {8,192, 8,193, 40,000} x K in {512, 128}; and
    ``sample()`` on a sampler at Enformer's ``SamplerConfig(seq_length=
    196608, batch_size=2, max_variants_per_window=512)``, draws and encode
-   against their plain versions, with no window past K.  Times at B=2,
-   L=196,608, K=512 on fresh windows (CUDA events back to back, the kernels
-   line's ``ms``; and the profiler, which late in a long process may record
-   no device ops) beside the
-   bound (bytes, 3.35 TB/s) and the least bytes a window moves (its genome
-   bytes read, its two rows written, each applied SNV read once).
-   ``python3 chip_smoke.py --long-windows`` runs phases 2 and 19 alone.
+   against their plain versions, with no window past K; then two more
+   batches at B=2, L=196,608, K=512.
+
+``--phase NAME`` runs one phase alone, with the set-up it needs, and prints
+its JSON line: ``single_pass`` (phases 7, 8 and 14), ``tokenizer`` (7, 8, 14
+and 16), ``reference`` (15), ``parallel`` (the converter files of phases 7
+and 14, then 17) or ``long_windows`` (2 and 19).  ``--parallel DIR`` is
+phase 17's child process.
 
 The lines before the last are a JSON object ``{"train": {...}}`` of phase
-13's numbers, one ``{"single_pass": {...}}`` of phase 14's, one
+13's checks, one ``{"single_pass": {...}}`` of phase 14's, one
 ``{"reference": {...}}`` of phase 15's, one ``{"tokenizer": {...}}`` of
 phase 16's, one ``{"parallel": {...}}`` of phase 17's, one ``{"chain":
-{...}}`` of phase 18's, one ``{"long_windows": {...}}`` of phase 19's, then
-one with one entry per kernel; the last line is ``{"ok": true, "device":
-{...}}``.
+{...}}`` of phase 18's, one ``{"long_windows": {...}}`` of phase 19's, one
+with one entry per kernel (its launches, and its times where phases 10 and
+12 take them), then the comparisons made; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -252,12 +235,7 @@ from haplohyped_tpu_torch.core.constants import (
     SNP_STRUCT_DTYPE,
     cohort_group_path,
 )
-from haplohyped_tpu_torch.core.timing import (
-    BF16_DENSE_FLOPS_PER_S,
-    HBM_BYTES_PER_S,
-    card_line,
-    device_ms,
-)
+from haplohyped_tpu_torch.core.timing import HBM_BYTES_PER_S, card_line, device_ms
 from haplohyped_tpu_torch.data.cohort import CohortTensors
 from haplohyped_tpu_torch.data.sampler import HaplotypeBatch, chain_digest
 from haplohyped_tpu_torch.hostio import native
@@ -271,11 +249,7 @@ from haplohyped_tpu_torch.hostio.tabix import build_index
 from haplohyped_tpu_torch.hostio.variants import VariantTable
 from haplohyped_tpu_torch.hostio.vcf import VCFSource
 from haplohyped_tpu_torch.hostio.writer import BcfWriter, VcfHeader, VcfWriter
-from haplohyped_tpu_torch.models.haploformer import (
-    HaploFormer,
-    HaploFormerConfig,
-    train_flops_per_step,
-)
+from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
 from haplohyped_tpu_torch.models.train import (
     create_train_state,
     loss_fn,
@@ -301,12 +275,7 @@ from haplohyped_tpu_torch.ops.pack import (
     pack_2bit_device,
     unpack_2bit_device,
 )
-from haplohyped_tpu_torch.ops.threefry import (
-    MASK32,
-    fold_in_words,
-    prng_key,
-    randint_multiplier,
-)
+from haplohyped_tpu_torch.ops.threefry import MASK32, prng_key
 from haplohyped_tpu_torch.ops.vcf_decode import (
     decode_frames,
     decode_frames12_packed,
@@ -339,7 +308,6 @@ from haplohyped_tpu_torch.ops.window_kernel import (
     build_window_index,
     encode_windows_kernel,
     window_bounds,
-    window_slice,
 )
 from haplohyped_tpu_torch.ops.window_lab import (
     SP,
@@ -626,22 +594,12 @@ def random_draws(sampler, B, L, gen):
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 6: the draw kernel
+# phase 3: the draw kernel
 # ---------------------------------------------------------------------------
 
 #: the main path's draw launches, in batches of B=64: sample(), sample_many(16)
 #: and a link of sample_chain(16, 256)
 DRAW_BATCHES = (1, 16, 256)
-#: int32 operations of one threefry2x32 hash: the third key word (2 xors),
-#: the first injection (2 adds), 20 rounds of add, rotate and xor, and 5
-#: injections of 3 adds
-THREEFRY_OPS = 2 + 2 + 20 * 3 + 5 * 3
-#: int32 operations of a remainder by a size fixed for the launch, as the
-#: kernel issues it: a multiply-high, a 64-bit add (2), a shift and a
-#: multiply-subtract
-REMAINDER_OPS = 5
-#: int32 operations of the crop a lane
-CROP_OPS = 8
 #: odd batch sizes of phase 3's checks (n_batches, B): lanes that cross and
 #: do not fill the kernel's 64-lane blocks, a block over many batches (B=1)
 #: and a batch over many blocks
@@ -649,9 +607,6 @@ DRAW_ODD_BATCHES = ((150, 1), (11, 3), (3, 65), (5, 100), (2, 257))
 #: region counts of phase 3's checks: one, and both sides of 2^16, where
 #: randint's multiplier wraps to 0
 DRAW_SPANS = (1, 65_536, 65_537)
-#: H100 SXM int32 rate: 64 INT32 lanes an SM x 132 SMs x 1.98 GHz (the
-#: table's 67 TFLOP/s float32 is 128 lanes x 2 for a fused multiply-add)
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 def draw_args(sampler) -> tuple:
@@ -663,35 +618,6 @@ def draw_sizes(sampler) -> tuple[int, int, int]:
     """The draws' sizes (R, D, C)."""
     regions, lengths, D, _ = draw_args(sampler)
     return regions.shape[0], D, lengths.shape[0]
-
-
-def draw_lane_ops(sizes) -> int:
-    """int32 operations one lane's draws need at sizes (R, D, C) beyond the
-    batch's keys: a field needs the hash and xor of ``l`` and one remainder
-    where randint's multiplier is 0, else ``h`` too, three remainders, a
-    product and an add; then the crop."""
-    ops = CROP_OPS
-    for s in sizes:
-        if randint_multiplier(s):
-            ops += 2 * (THREEFRY_OPS + 1) + 3 * REMAINDER_OPS + 2
-        else:
-            ops += THREEFRY_OPS + 1 + REMAINDER_OPS
-    return ops
-
-
-def draw_bound(draws, sizes) -> tuple[float, str]:
-    """``(ms, "bytes" or "operations")``: the least time of one draw call at
-    sizes (R, D, C), the larger of its int32 work over INT32_OPS_PER_S
-    (:func:`draw_lane_ops` a lane and 10 hashes a batch, whatever the kernel
-    repeats) and its bytes over HBM_BYTES_PER_S (4 int32 stores a lane, the
-    key, and each region span and chromosome length the draws name, read
-    once)."""
-    lanes = draws.start.numel()
-    ops = lanes * draw_lane_ops(sizes) + lanes // BATCH * 10 * THREEFRY_OPS
-    nbytes = (16 * lanes + 16 + 8 * torch.unique(draws.region_idx).numel()
-              + 4 * torch.unique(draws.chrom_idx).numel())
-    t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def draw_checks(sampler, seed: int, cmp: Comparisons) -> int:
@@ -744,41 +670,6 @@ def draw_checks(sampler, seed: int, cmp: Comparisons) -> int:
                         digest=torch.tensor(c["digest"], dtype=torch.int64, device=dev))
     check(link.key.tolist() == c["link_key"], "fold_in(key, digest) on the card differs from JAX's")
     return lanes
-
-
-def draw_times(card: str, sampler) -> dict:
-    """The draw kernel at each ``DRAW_BATCHES`` shape on fresh keys: device
-    time a launch back to back behind a sleep kernel (CUDA events), from
-    the profiler and in a CUDA graph (CUDA events), the wrapper's host
-    time, the plain version's device time (profiler) and host time, and the
-    bound.  Returns each shape's numbers,
-    keyed by its lane count."""
-    args = draw_args(sampler)
-    out = {}
-    for n in DRAW_BATCHES:
-        calls = [(((i * 2654435761) & MASK32, i), i, n, BATCH, *args) for i in range(200)]
-        ev, host = device_ms(draw_windows, calls)
-        prof = profiler_device_ms(draw_windows, calls)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for x in calls[:5]:
-            draws_plain(*x)
-        torch.cuda.synchronize()
-        host_plain = (time.perf_counter() - t0) * 1e3 / 5
-        plain = profiler_device_ms(draws_plain, calls[:5])
-        bound, by = draw_bound(draw_windows(*calls[0]), draw_sizes(sampler))
-        graph = graph_ms(draw_windows, calls)
-        lanes = n * BATCH
-        out[lanes] = {"ms": ev, "profiler_ms": prof, "graph_ms": graph, "host_ms": host,
-                      "plain_ms": plain, "plain_host_ms": host_plain, "bound_ms": bound,
-                      "bound_by": by}
-        log(f"[{card}] draw kernel at {lanes} lanes ({n} x B={BATCH}), 200 fresh keys: "
-            f"{ev:.6f} ms/launch back to back (CUDA events), {_ms_text(prof, 'ms/launch')} "
-            f"device busy (profiler), {graph:.6f} ms/launch in a CUDA graph (CUDA events), "
-            f"{host:.5f} ms/call wrapper host time; plain version "
-            f"{_ms_text(plain, 'ms/call')} device busy (profiler), {host_plain:.4f} ms/call "
-            f"host time; bound {bound:.7f} ms ({by})")
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -843,7 +734,7 @@ def check_from_files(tmp: str, seed: int, cfg: SamplerConfig, cmp: Comparisons) 
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timing
+# device times of phases 10 and 17
 # ---------------------------------------------------------------------------
 
 def profiler_device_ms(fn, args_list) -> float | None:
@@ -863,30 +754,21 @@ def profiler_device_ms(fn, args_list) -> float | None:
     return sum(e.time_range.elapsed_us() for e in dev) / len(args_list) / 1e3
 
 
-def graph_ms(fn, args_list, replays: int = 10) -> float:
-    """Device ms a call of ``fn`` over ``args_list``, the calls captured in
-    one CUDA graph and replayed, as ``sample_chain``'s graph runs its links
-    (CUDA events over ``replays`` replays after one to warm up): no host
-    launch gap between them.  The capture advances the kernels' launch
-    counts without launching, so no caller reads a count across it."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # the warm-up that torch.cuda.graph asks for
-        for args in args_list:
-            fn(*args)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for args in args_list:
-            fn(*args)
-    graph.replay()
+def step_times(fn, n_warm: int, n: int) -> tuple[float, float]:
+    """``(device ms, host ms)`` a call of ``fn(i)`` over ``n`` calls after
+    ``n_warm``: CUDA events around the calls, and the host clock to a
+    synchronize."""
+    for i in range(n_warm):
+        fn(i)
+    torch.cuda.synchronize()
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
     a.record()
-    for _ in range(replays):
-        graph.replay()
+    for i in range(n_warm, n_warm + n):
+        fn(i)
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / replays / len(args_list)
+    return a.elapsed_time(b) / n, (time.perf_counter() - t0) * 1e3 / n
 
 
 def trace_calls(fn, n_calls: int, what: str, top: int = 6) -> tuple[str, dict]:
@@ -927,83 +809,6 @@ def trace_calls(fn, n_calls: int, what: str, top: int = 6) -> tuple[str, dict]:
             stats)
 
 
-def window_batches(sampler, first_step: int, n: int, steps: int) -> list:
-    """``n`` batches of (donor, chrom, start), each the draws of ``steps``
-    consecutive sampling steps from ``first_step`` on (``steps * B``
-    windows, as ``sample_many(steps)`` encodes them)."""
-    out = []
-    base = prng_key(sampler.config.seed)
-    for i in range(first_step, first_step + n * steps, steps):
-        d = draw_windows(base, i, steps, BATCH, *draw_args(sampler))
-        out.append((d.donor_idx, d.chrom_idx, d.start))
-    return out
-
-
-def _ms_text(ms: float | None, unit: str = "ms") -> str:
-    return "no device ops recorded" if ms is None else f"{ms:.6f} {unit}"
-
-
-def window_times(card: str, index, batches, n_plain: int, cmp: "Comparisons") -> dict:
-    """The window kernel on ``batches`` (one shape): device busy time per
-    batch (profiler) and back to back behind a sleep kernel (CUDA events);
-    the wrapper's host time; the plain version on the first ``n_plain``
-    batches; the bound; the slice of the row the kernel reads (and the plain
-    model of its search, ``window_bounds``, against its ``n_variants``); and
-    the launch floor, a ``fill_`` of a (B,) int32 tensor timed the same two
-    ways.  Returns the kernel's and the plain version's profiler ms (``None``
-    where the profiler recorded nothing) and the bound."""
-    L, K = SEQ_LENGTH, K_MAX
-    B = batches[0][0].shape[0]
-    kern = functools.partial(encode_windows_kernel, index, L=L, K=K)
-    plain = functools.partial(encode_haplotype_windows, *index.plain_args, L=L, K=K)
-    ev_kernel, host_kernel = device_ms(kern, batches)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for x in batches[:n_plain]:
-        plain(*x)
-    host_plain = (time.perf_counter() - t0) * 1e3 / n_plain
-    ms_kernel = profiler_device_ms(kern, batches)
-    # the plain version's many launches a batch fill the launch queue behind
-    # a sleeping device, so its device time comes from the profiler alone
-    ms_plain = profiler_device_ms(plain, batches[:n_plain])
-    buf = torch.empty(B, dtype=torch.int32, device=index.pos.device)
-    fill = [(buf,)] * len(batches)
-    ev_floor, host_floor = device_ms(lambda x: x.fill_(7), fill)
-    prof_floor = profiler_device_ms(lambda x: x.fill_(7), fill)
-
-    outs = [kern(*x) for x in batches]
-    slices = [window_slice(index, *x, L) for x in batches]
-    n_apply = [o.n_variants.clamp(max=K) for o in outs]
-    bound = lab.bound_bytes("prod", slices, n_apply, L)
-    ms_bound = lab.bound_ms("prod", slices, n_apply, L)
-    for (d, c, s), out in zip(batches[:4], outs[:4]):
-        cmp.windows(out, plain(d, c, s), f"timed batch B={B}")
-    lo, hi = window_bounds(index, *batches[0], L)
-    check(torch.equal((hi - lo).int(), outs[0].n_variants),
-          f"window_bounds' n_in differs from the kernel's at B={B}")
-    n = torch.cat([e - a for a, e in slices]).double()
-    n_win = B * len(batches)
-    log(f"[{card}] window kernel B={B} L={L} K={K}, {len(batches)} batches of fresh "
-        f"windows: {_ms_text(ms_kernel, 'ms/batch')} device busy (profiler), "
-        f"{ev_kernel:.6f} ms/batch back to back (CUDA events), "
-        f"{host_kernel:.5f} ms/call wrapper host time; bound {ms_bound:.7f} ms "
-        f"(bytes, 3.35 TB/s)")
-    log(f"[{card}] window kernel B={B}: the slice of the row read a window holds "
-        f"{float(n.mean()):.2f} entries on average, {int(n.max())} at most, "
-        f"{bound['applied'] / n_win:.3f} applied; the kernel reads "
-        f"~{12 + 16 + L + 16 + 6 * float(n.mean()):.0f} B a window, the bound counts "
-        f"{(bound['bytes'] - n_win * (2 * L + 8)) / n_win:.1f} B of reads "
-        f"({bound['search'] / n_win:.1f} B of search)")
-    log(f"[{card}] plain version, same shape, {n_plain} batches: "
-        f"{_ms_text(ms_plain, 'ms/batch')} device busy (profiler), "
-        f"{host_plain:.5f} ms/call host time")
-    log(f"[{card}] launch floor B={B}: fill_ of a ({B},) int32 tensor, {len(fill)} calls: "
-        f"{ev_floor:.6f} ms/call back to back (CUDA events), "
-        f"{_ms_text(prof_floor, 'ms/call')} device busy (profiler), "
-        f"{host_floor:.5f} ms/call host time")
-    return {"ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": ms_bound}
-
-
 # ---------------------------------------------------------------------------
 # phase 19: the window kernel at long windows and past 128 variants
 # ---------------------------------------------------------------------------
@@ -1018,12 +823,9 @@ LONG_SHAPES = ([(ENFORMER_B, ENFORMER_L, K) for K in (ENFORMER_K, 300, 129, 128,
                   for K in (ENFORMER_K, 128)])
 
 
-def long_windows_phase(card: str, seed: int, genome, cohort, regions, sampler,
-                       cmp: Comparisons) -> dict:
+def long_windows_phase(seed: int, genome, cohort, regions, sampler, cmp: Comparisons) -> dict:
     """Phase 19 (``sampler``: phase 3's, whose index the comparisons use).
-    Returns its numbers: comparisons, launches, windows past K, the times
-    and the bounds at Enformer's shape."""
-    t_phase = time.perf_counter()
+    Returns its comparisons, launches and windows past K."""
     index, dev = sampler.index, sampler.device
     gen = torch.Generator(device=dev).manual_seed(seed + 19)
     launches = n_cmp = over_k = 0
@@ -1062,42 +864,14 @@ def long_windows_phase(card: str, seed: int, genome, cohort, regions, sampler,
     check(over_k == 0, f"{over_k} windows at K={ENFORMER_K} held more than K variants")
     del long_sampler, batches
 
-    # times at Enformer's shape, on fresh windows
     L, K, B = ENFORMER_L, ENFORMER_K, ENFORMER_B
-    timed = [random_draws(sampler, B, L, gen) for _ in range(40)]
-    kern = functools.partial(encode_windows_kernel, index, L=L, K=K)
-    plain = functools.partial(encode_haplotype_windows, *index.plain_args, L=L, K=K)
-    ev_ms, host_ms = device_ms(kern, timed)
-    ms = profiler_device_ms(kern, timed)
-    plain_ms = profiler_device_ms(plain, timed[:4])
-    outs = [kern(*x) for x in timed]
-    slices = [window_slice(index, *x, L) for x in timed]
-    n_apply = [o.n_variants.clamp(max=K) for o in outs]
-    bound = lab.bound_ms("prod", slices, n_apply, L)
-    applied = float(sum(float(k.double().sum()) for k in n_apply)) / len(timed)
-    # each window's genome bytes read, its two rows and counts written, its
-    # draw read, each applied SNV's position and alleles read once
-    least_ms = (B * (12 + 3 * L + 8) + 6 * applied) / HBM_BYTES_PER_S * 1e3
-    for x, out in zip(timed[:2], outs[:2]):
-        cmp.windows(out, plain(*x), f"timed batch B={B} L={L} K={K}")
+    for _ in range(2):
+        cmp.encode(index, *random_draws(sampler, B, L, gen), L, K, f"batch B={B} L={L} K={K}")
     n_cmp += 2
-    nv = torch.cat([o.n_variants for o in outs]).double()
-    phase_s = time.perf_counter() - t_phase
     log(f"long windows: {n_cmp} kernel/plain comparisons bit-equal at (B, L, K) in "
-        f"{LONG_SHAPES} (two draws each), 4 sample() batches at L={L} K={K} and 2 timed; "
-        f"{launches} window kernel launches, one a call; {over_k} windows past K={K}")
-    log(f"[{card}] window kernel B={B} L={L} K={K}, {len(timed)} batches of fresh windows "
-        f"({float(nv.mean()):.1f} SNVs a window on average, {int(nv.max())} at most): "
-        f"{_ms_text(ms, 'ms/batch')} device busy (profiler), {ev_ms:.6f} ms/batch back to "
-        f"back (CUDA events), {host_ms:.5f} ms/call wrapper host time; bound {bound:.6f} ms "
-        f"(bytes, 3.35 TB/s), least bytes {least_ms:.6f} ms; plain version "
-        f"{_ms_text(plain_ms, 'ms/batch')} device busy (profiler, 4 batches); phase "
-        f"{phase_s:.1f} s")
-    return {"comparisons": n_cmp, "launches": launches, "windows_past_k": over_k,
-            "B": B, "L": L, "K": K, "ms": ms, "event_ms": ev_ms, "host_ms": host_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound, "least_bytes_ms": least_ms,
-            "snvs_mean": float(nv.mean()), "snvs_max": int(nv.max()), "phase_s": phase_s}
+        f"{LONG_SHAPES} (two draws each), 4 sample() batches at L={L} K={K} and 2 more at "
+        f"B={B}; {launches} window kernel launches, one a call; {over_k} windows past K={K}")
+    return {"comparisons": n_cmp, "launches": launches, "windows_past_k": over_k}
 
 
 # ---------------------------------------------------------------------------
@@ -1569,8 +1343,6 @@ def lab_path(card: str, seed: int, sampler, cmp: Comparisons) -> dict:
 # phase 13: the training path
 # ---------------------------------------------------------------------------
 
-#: the JAX bench's scaled point (``bench.py:1450-1456``)
-SCALED_CFG, SCALED_B = HaploFormerConfig(d_model=512, num_layers=8), 256
 #: fused steps, then ``train_on_sampler``'s steps, of the training path
 N_FUSED, N_TRAIN_ON = 20, 5
 #: sampling steps of the fused steps: past every step the earlier phases drew
@@ -1689,164 +1461,6 @@ def train_path(seed: int, sampler, cmp: Comparisons) -> dict:
         "bit-equal, the next batch's loss bit-equal")
     return {"window_launches": launches, "draw_launches": draws, "batches": n_batches, **errs,
             "fused_losses": [fused_losses[0], fused_losses[-1]], "train_on_sampler_losses": losses}
-
-
-def step_times(fn, n_warm: int, n: int) -> tuple[float, float]:
-    """``(device ms, host ms)`` a call of ``fn(i)`` over ``n`` calls after
-    ``n_warm``: CUDA events around the calls, and the host clock to a
-    synchronize."""
-    for i in range(n_warm):
-        fn(i)
-    torch.cuda.synchronize()
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0 = time.perf_counter()
-    a.record()
-    for i in range(n_warm, n_warm + n):
-        fn(i)
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / n, (time.perf_counter() - t0) * 1e3 / n
-
-
-def stage_split(state, batches, sampler, step0: int) -> dict:
-    """Median ms a step of each stage of a fused step, each run alone
-    between synchronizes: ``{stage: (host ms, ms to the synchronize)}``, the
-    host's time being that until the call returns.  Stages: ``sample`` (the
-    draws and the window kernel), ``forward`` (``loss_fn``), ``backward``
-    and ``optimizer`` (AdamW's step)."""
-    times = {k: ([], []) for k in ("sample", "forward", "backward", "optimizer")}
-
-    def stage(name, fn):
-        host, synced = times[name]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        host.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        synced.append(time.perf_counter() - t0)
-        return out
-
-    for i, b in enumerate(batches):
-        stage("sample", lambda: sampler.batch_at(step0 + i))
-        loss = stage("forward", lambda: loss_fn(state.model, b.hap1, b.hap2, b.n_variants)[0])
-        state.optimizer.zero_grad(set_to_none=True)
-        stage("backward", loss.backward)
-        stage("optimizer", state.optimizer.step)
-    return {k: (float(np.median(h)) * 1e3, float(np.median(w)) * 1e3)
-            for k, (h, w) in times.items()}
-
-
-def train_times(seed: int) -> dict:
-    """Phase 13's times, run in a process of their own (``--train-times``):
-    a profiler session slows the launch path after it and records fewer
-    device ops as a process ages (``PERF.md`` §7), so the training path is
-    timed where no phase ran before it.  On the deployment state of
-    ``--seed``: ``sample_many(16)``'s windows/s; ``HaploFormerConfig()`` at
-    B=64, L=1000, a train step on batches sampled beforehand and a fused
-    step (3 warm-up steps, then 20: CUDA events and the host clock),
-    windows/s consumed, ``mfu`` against the bf16 peak, peak memory, and a
-    ``torch.profiler`` trace of 5 fused steps; then the scaled point, timed
-    and traced the same way."""
-    dev = torch.device("cuda")
-    card = card_line()
-    genome, cohort, regions = make_state(seed, dev)
-    sampler = DeviceHaplotypeSampler(genome, cohort, regions,
-                                     SamplerConfig(seq_length=SEQ_LENGTH, batch_size=BATCH))
-    sampler.sample_many(16)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        sampler.sample_many(16)
-    torch.cuda.synchronize()
-    sampler_wps = 20 * 16 * BATCH / (time.perf_counter() - t0)
-
-    batches = [sampler.sample() for _ in range(23)]
-    torch.cuda.synchronize()
-    mem0 = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    cfg = HaploFormerConfig()
-    st = [create_train_state(cfg, (batches[0].hap1, batches[0].hap2), seed=seed)]
-    step, fused = make_train_step(), make_fused_train_step(sampler)
-
-    def train(i):
-        b = batches[i]
-        st[0] = step(st[0], b.hap1, b.hap2, b.n_variants)[0]
-
-    def fuse(i):
-        st[0] = fused(st[0], 2 * FUSED_STEP0 + i)[0]
-
-    ms, host_ms = step_times(train, 3, 20)
-    ms_fused, host_fused = step_times(fuse, 3, 20)
-    peak = torch.cuda.max_memory_allocated()
-    flops = train_flops_per_step(cfg, BATCH, SEQ_LENGTH)
-    split = stage_split(st[0], batches[3:13], sampler, 3 * FUSED_STEP0)
-    log(f"[{card}] fused step by stage, each between synchronizes (median of 10, host "
-        f"ms / ms to the synchronize): "
-        + ", ".join(f"{k} {h:.3f} / {w:.3f}" for k, (h, w) in split.items()))
-    calls = iter(range(100, 200))
-    text, tr = trace_calls(lambda: fuse(next(calls)), 5, "fused train step", top=12)
-    log(f"[{card}] {text}")
-    out = {
-        "ms_step": ms, "ms_step_host": host_ms, "ms_fused": ms_fused, "ms_fused_host": host_fused,
-        "windows_per_s": BATCH / host_ms * 1e3, "fused_windows_per_s": BATCH / host_fused * 1e3,
-        "sample_many_16_windows_per_s": sampler_wps, "flops_per_step": flops,
-        "mfu": flops / (ms * 1e-3) / BF16_DENSE_FLOPS_PER_S,
-        "device_busy_ms": tr["busy_ms"], "device_ops_per_step": tr["ops"],
-        "idle_share": None if tr["busy_ms"] is None else 1 - tr["busy_ms"] / ms_fused,
-        "peak_mem_gib": peak / 2**30, "train_mem_gib": (peak - mem0) / 2**30,
-        "split_host_ms": {k: h for k, (h, _) in split.items()},
-        "split_ms": {k: w for k, (_, w) in split.items()},
-    }
-    log(f"[{card}] train step HaploFormerConfig() B={BATCH} L={SEQ_LENGTH}: {ms:.4f} ms a step "
-        f"(CUDA events), {host_ms:.4f} ms (host clock), {out['windows_per_s']:,.0f} windows/s "
-        f"consumed; fused step {ms_fused:.4f} ms, {host_fused:.4f} ms, "
-        f"{out['fused_windows_per_s']:,.0f} windows/s; sample_many(16) {sampler_wps:,.0f} "
-        f"windows/s; {flops:.4g} FLOPs a step, mfu {out['mfu']:.4f} (989 TFLOP/s bf16); "
-        f"peak memory {out['peak_mem_gib']:.3f} GiB ({out['train_mem_gib']:.3f} above the "
-        f"sampler's state)")
-
-    st.clear()
-    torch.cuda.empty_cache()
-    n = SCALED_B // BATCH
-    big = []
-    for _ in range(13):
-        b = sampler.sample_many(n)
-        big.append(tuple(t.reshape(SCALED_B, *t.shape[2:]) for t in (b.hap1, b.hap2, b.n_variants)))
-    st.append(create_train_state(SCALED_CFG, big[0][:2], seed=seed))
-
-    def train_big(i):
-        st[0] = step(st[0], *big[i])[0]
-
-    ms_big, host_big = step_times(train_big, 3, 10)
-    flops_big = train_flops_per_step(SCALED_CFG, SCALED_B, SEQ_LENGTH)
-    calls = iter(range(3, 13))
-    text, tr = trace_calls(lambda: train_big(next(calls)), 5, "scaled train step", top=12)
-    log(f"[{card}] {text}")
-    out["scaled"] = {"d_model": SCALED_CFG.d_model, "num_layers": SCALED_CFG.num_layers,
-                     "B": SCALED_B, "ms_step": ms_big, "ms_step_host": host_big,
-                     "flops_per_step": flops_big,
-                     "mfu": flops_big / (ms_big * 1e-3) / BF16_DENSE_FLOPS_PER_S,
-                     "device_busy_ms": tr["busy_ms"], "device_ops_per_step": tr["ops"]}
-    log(f"[{card}] train step scaled point d_model {SCALED_CFG.d_model} x "
-        f"{SCALED_CFG.num_layers} layers B={SCALED_B} L={SEQ_LENGTH}: "
-        f"{ms_big:.4f} ms a step (CUDA events), {host_big:.4f} ms (host clock), "
-        f"{flops_big:.4g} FLOPs, mfu {out['scaled']['mfu']:.4f}")
-    return out
-
-
-def run_train_times(seed: int) -> dict:
-    """``train_times`` in a child process; its log lines are relayed."""
-    torch.cuda.empty_cache()
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--train-times", "--seed", str(seed)],
-        capture_output=True, text=True, timeout=600,
-    )
-    lines = proc.stdout.splitlines()
-    for line in lines[:-1]:
-        log(line)
-    check(proc.returncode == 0 and lines,
-          f"--train-times exited {proc.returncode}: {proc.stderr[-3000:]}")
-    return json.loads(lines[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -2902,10 +2516,10 @@ def run_parallel(seed: int, tmp: str) -> dict:
 # ---------------------------------------------------------------------------
 
 #: the chain checked against the eager plain chain; the one-hot chain; the
-#: JAX bench's timed chain (bench.py:1256); timed calls of it and of
-#: sample_many(16), in turns; batches of B=16,384 timed for the kernel alone
-CHAIN_CHECK, CHAIN_ONEHOT, CHAIN_TIMED = (3, 4), (2, 2), (16, 256)
-N_CHAIN_CALLS, N_LINK_BATCHES, N_LINK_CHECKED = 12, 8, 2
+#: JAX bench's chain (bench.py:1256), which the benchmark's chain cell runs;
+#: window-kernel launches checked at its links' B=16,384
+CHAIN_CHECK, CHAIN_ONEHOT, CHAIN_BENCH = (3, 4), (2, 2), (16, 256)
+N_LINK_CHECKED = 2
 
 
 def host_digest(batch) -> int:
@@ -2922,17 +2536,13 @@ def host_digest(batch) -> int:
 
 def chain_phase(card: str, seed: int, genome, cohort, regions, sampler,
                 cmp: Comparisons) -> tuple[dict, int]:
-    """Phase 18 on the phase-3 sampler.  Returns its numbers and the window
-    kernel's launches on the chain's own run."""
-    t_phase = time.perf_counter()
+    """Phase 18 on the phase-3 sampler.  Returns what its checks saw and the
+    window kernel's launches on the chain's own run."""
     out: dict = {"card": card}
     key = seed + 18
     n_chain, n_batches = CHAIN_CHECK
     want = sampler.chain_run(n_chain, n_batches, key=key, kernel="baseline")
-    t0 = time.perf_counter()
     sampler.sample_chain(n_chain, n_batches, key=key)  # warm-up and capture
-    torch.cuda.synchronize()
-    out["capture_s"] = time.perf_counter() - t0
 
     # the chain's run: every launch counted, no host round-trip before the fetch
     step0 = sampler._step
@@ -2962,8 +2572,8 @@ def chain_phase(card: str, seed: int, genome, cohort, regions, sampler,
     # a link's draws from the last key on the card, with its digest, against the CPU's
     args = draw_args(sampler)
     last_key, digest = got.keys[-1], chain_digest(got.last)
-    on_card = draw_windows(last_key, 0, CHAIN_TIMED[1], BATCH, *args, digest=digest)
-    on_cpu = draws_plain(last_key.cpu(), 0, CHAIN_TIMED[1], BATCH,
+    on_card = draw_windows(last_key, 0, CHAIN_BENCH[1], BATCH, *args, digest=digest)
+    on_cpu = draws_plain(last_key.cpu(), 0, CHAIN_BENCH[1], BATCH,
                          *(t.cpu() for t in args[:2]), *args[2:], digest=digest.cpu())
     check(all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)),
           "the chain's draws on the card differ from the CPU's")
@@ -2986,149 +2596,93 @@ def chain_phase(card: str, seed: int, genome, cohort, regions, sampler,
         f"{launches} window and {draws} draw launches for 5 calls under sync debug mode "
         f"'error'; key-less calls advance the step; {out['draws_checked']:,} lanes of a "
         f"link's draws from the card's last key equal to the CPU's; "
-        f"emit_onehot {CHAIN_ONEHOT} equal; first call (warm-up, capture) {out['capture_s']:.3f} s")
+        f"emit_onehot {CHAIN_ONEHOT} equal")
 
-    # times: the chain with its digest fetch, in turns with sample_many(16)
-    n_chain, n_batches = CHAIN_TIMED
-    t0 = time.perf_counter()
-    int(sampler.sample_chain(n_chain, n_batches, key=key))
-    out["timed_capture_s"] = time.perf_counter() - t0
-    chain_s, keyless_s, many_s = [], [], []
-    for i in range(N_CHAIN_CALLS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        int(sampler.sample_chain(n_chain, n_batches, key=key + 100 + i))  # the fetch attests
-        chain_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        int(sampler.sample_chain(n_chain, n_batches))  # its first key hashed on the host
-        keyless_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        sampler.sample_many(16)
-        torch.cuda.synchronize()
-        many_s.append(time.perf_counter() - t0)
-    windows = n_chain * n_batches * BATCH
-    med_chain, med_many = float(np.median(chain_s)), float(np.median(many_s))
-    med_keyless = float(np.median(keyless_s))
-    host_key = [sampler._base_key, sampler._step]
-    t0 = time.perf_counter()
-    for i in range(1000):
-        fold_in_words(*host_key)
-    fold_in_us = (time.perf_counter() - t0) * 1e3
-    ev, _ = device_ms(lambda k: sampler.sample_chain(n_chain, n_batches, key=k),
-                      [(key + 200 + i,) for i in range(4)])
-    out |= {"n_chain": n_chain, "n_batches": n_batches, "B": BATCH, "L": SEQ_LENGTH,
-            "chain_call_s": med_chain, "chain_windows_per_s": windows / med_chain,
-            "keyless_chain_call_s": med_keyless, "host_fold_in_us": fold_in_us,
-            "sample_many16_s": med_many, "sample_many16_windows_per_s": 16 * BATCH / med_many,
-            "chain_device_ms": ev, "link_device_ms": ev / n_chain}
-
-    # where a link's time goes: one link run eagerly, traced
-    link_key = prng_key(key)
-    trace, stats = trace_calls(lambda: sampler._chain_links(link_key, 1, n_batches, "kernel"), 5,
-                               f"one eager link of sample_chain{CHAIN_TIMED}", top=8)
-    log(f"[{card}] {trace}")
-    out |= {"link_eager_busy_ms": stats["busy_ms"], "link_eager_device_ops": stats["ops"]}
-
-    # the kernels alone at a link's shape, B = n_batches * 64, on chain draws
-    calls = [(prng_key(key + 300 + i), 0, n_batches, BATCH, *args)
-             for i in range(N_LINK_BATCHES)]
-    ev_draw, _ = device_ms(draw_windows, calls)
-    batches = [(d.donor_idx, d.chrom_idx, d.start) for d in (draw_windows(*x) for x in calls)]
-    draw_bound_ms, _ = draw_bound(draw_windows(*calls[0]), draw_sizes(sampler))
-    kern = functools.partial(encode_windows_kernel, sampler.index, L=SEQ_LENGTH, K=K_MAX)
-    ev_kernel, _ = device_ms(kern, batches)
-    outs = [kern(*x) for x in batches]
-    slices = [window_slice(sampler.index, *x, SEQ_LENGTH) for x in batches]
-    bound = lab.bound_ms("prod", slices, [o.n_variants.clamp(max=K_MAX) for o in outs], SEQ_LENGTH)
-    out |= {"link_B": n_batches * BATCH, "link_kernel_ms": ev_kernel, "link_kernel_bound_ms": bound,
-            "link_draw_ms": ev_draw, "link_draw_bound_ms": draw_bound_ms}
-
-    # a link split by CUDA events, each piece alone in a CUDA graph as the
-    # chain's graph runs it: the draws from a key on the card with a digest,
-    # the window kernel, chain_digest on the window kernel's outputs
-    link_batches = [HaplotypeBatch(o.hap1, o.hap2, o.hap1, o.hap2, o.n_variants, o.overflow)
-                    for o in outs]
-    split = {
-        "draw": graph_ms(lambda: draw_windows(last_key, 0, n_batches, BATCH, *args,
-                                              digest=digest), [()] * N_LINK_BATCHES),
-        "window_kernel": graph_ms(kern, batches),
-        "chain_digest": graph_ms(chain_digest, [(b,) for b in link_batches]),
-    }
-    del link_batches
-    out |= {"link_split_graph_ms": split,
-            "link_rest_ms": out["link_device_ms"] - sum(split.values())}
-
-    # the kernel at the timed shape against the plain version: the graph's chain
-    # and two of the timed launches
+    # the JAX bench's chain against the eager plain chain, and the window
+    # kernel at its links' B against the plain version
+    n_chain, n_batches = CHAIN_BENCH
     want = sampler.chain_run(n_chain, n_batches, key=key, kernel="baseline")
     got = sampler.chain_run(n_chain, n_batches, key=key)
     check(int(got.digest) == int(want.digest) and torch.equal(got.keys, want.keys),
-          f"sample_chain{CHAIN_TIMED}: the graph's chain differs from the eager plain chain")
+          f"sample_chain{CHAIN_BENCH}: the graph's chain differs from the eager plain chain")
     flat = HaplotypeWindows(*(t.reshape(-1, *t.shape[2:]) for t in got.last[2:]))
     cmp.windows(flat, HaplotypeWindows(*(t.reshape(-1, *t.shape[2:]) for t in want.last[2:])),
-                f"sample_chain{CHAIN_TIMED} last link")
+                f"sample_chain{CHAIN_BENCH} last link")
     for i in range(N_LINK_CHECKED):
-        cmp.windows(outs[i], encode_haplotype_windows(*sampler.index.plain_args, *batches[i],
-                                                      L=SEQ_LENGTH, K=K_MAX),
-                    f"window kernel at B={n_batches * BATCH}, batch {i}")
-    out["timed_shape_checked"] = {"digest": int(got.digest), "links": n_chain,
+        d = draw_windows(prng_key(key + 300 + i), 0, n_batches, BATCH, *args)
+        cmp.encode(sampler.index, d.donor_idx, d.chrom_idx, d.start, SEQ_LENGTH, K_MAX,
+                   f"window kernel at B={n_batches * BATCH}, batch {i}")
+    out["bench_shape_checked"] = {"digest": int(got.digest), "links": n_chain,
                                   "windows": flat.hap1.shape[0], "kernel_batches": N_LINK_CHECKED}
-    del want, got, flat
-    log(f"[{card}] sample_chain{CHAIN_TIMED}: {med_chain * 1e3:.4f} ms a call with its digest "
-        f"fetch (median of {N_CHAIN_CALLS}, host clock) = {windows / med_chain:,.0f} "
-        f"device-resident windows/s; key-less, in turns, {med_keyless * 1e3:.4f} ms a call "
-        f"(its first key's fold_in on the host {fold_in_us:.2f} us); {ev:.4f} ms device a call, {ev / n_chain:.5f} ms a link "
-        f"(CUDA events); in turns, sample_many(16) {med_many * 1e3:.4f} ms = "
-        f"{16 * BATCH / med_many:,.0f} windows/s; the window kernel at B={n_batches * BATCH}: "
-        f"{ev_kernel:.5f} ms a launch (CUDA events), bound {bound:.5f} ms (bytes, 3.35 TB/s); "
-        f"the draw kernel there: {ev_draw:.6f} ms a launch (CUDA events), bound "
-        f"{draw_bound_ms:.6f} ms; a link split, each piece alone in a CUDA graph (CUDA "
-        f"events): draw kernel {split['draw']:.6f} ms, window kernel "
-        f"{split['window_kernel']:.6f}, chain_digest {split['chain_digest']:.6f}, the rest of "
-        f"the link's {ev / n_chain:.6f} ms {out['link_rest_ms']:.6f}; "
-        f"at this shape the graph's chain equal to the eager plain chain (digest "
-        f"{out['timed_shape_checked']['digest']}, {n_chain} keys, the last link's "
-        f"{n_batches * BATCH} windows) and {N_LINK_CHECKED} launches equal to the plain version")
-    out["phase_s"] = time.perf_counter() - t_phase
-    log(f"chain phase: {out['phase_s']:.1f} s")
+    log(f"chain checks at sample_chain{CHAIN_BENCH}: the graph's chain equal to the eager plain "
+        f"chain (digest {int(got.digest)}, {n_chain} keys, the last link's "
+        f"{n_batches * BATCH} windows) and {N_LINK_CHECKED} window kernel launches at "
+        f"B={n_batches * BATCH} equal to the plain version")
     return out, launches
 
 
 # ---------------------------------------------------------------------------
 
+#: the kernels line's times of the window and draw kernels, which the
+#: benchmark measures (``portbench/run.py``: ``link_roofline.chain``,
+#: ``window_roofline.enformer`` and each cell's device-op breakdown)
+UNTIMED = {"ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None}
+#: the phases ``--phase`` runs alone
+PHASES = ("single_pass", "tokenizer", "reference", "parallel", "long_windows")
+
+
+def run_phase(name: str, seed: int) -> dict:
+    """``--phase name``: that phase alone, after the set-up it needs (its
+    kernels build at first use).  Returns its JSON line's object."""
+    card, dev = card_line(), torch.device("cuda")
+    if name == "long_windows":
+        genome, cohort, regions = make_state(seed, dev)
+        sampler = DeviceHaplotypeSampler(genome, cohort, regions,
+                                         SamplerConfig(seq_length=SEQ_LENGTH, batch_size=BATCH))
+        cmp = Comparisons()
+        long = long_windows_phase(seed, genome, cohort, regions, sampler, cmp)
+        return {"long_windows": long, "max_abs_err": cmp.max_abs_err}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        if name == "reference":
+            cmp = Comparisons()
+            reference = reference_phase(card, tmp, seed, dev, cmp)[0]
+            return {"reference": reference, "comparisons": cmp.count,
+                    "max_abs_err": cmp.max_abs_err}
+        if name == "parallel":
+            make_converter_input(tmp, seed)
+            cohort_input(tmp, seed)
+            return {"parallel": run_parallel(seed, tmp)}
+        ctx = converter_main_path(tmp, seed, dev, DecodeComparisons())
+        out = {"single_pass": single_pass_phase(card, tmp, seed, dev, ctx)}
+        if name == "tokenizer":
+            torch.cuda.empty_cache()
+            out["tokenizer"] = tokenizer_phase(card, tmp, dev, ctx)
+        return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--train-times", action="store_true",
-                    help="time phase 13's training path alone and print the times as "
-                         "one JSON line (phase 13 runs this in a process of its own)")
-    ap.add_argument("--parallel", metavar="DIR",
-                    help="run phase 17 alone on the files phases 7 and 14 wrote under DIR and "
-                         "print its numbers as one JSON line (phase 17 runs this in a process "
-                         "of its own)")
-    ap.add_argument("--long-windows", action="store_true",
-                    help="run phase 19 alone on phase 2's state and print its numbers as one "
+    ap.add_argument("--phase", choices=PHASES,
+                    help="run this phase alone, with the set-up it needs, and print its "
                          "JSON line")
+    ap.add_argument("--parallel", metavar="DIR",
+                    help="phase 17's child process: run it on the files phases 7 and 14 "
+                         "wrote under DIR and print its numbers as one JSON line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
-    if args.train_times:
-        print(json.dumps(train_times(args.seed)), flush=True)
-        return 0
     if args.parallel:
         print(json.dumps(parallel_phase(args.seed, args.parallel)), flush=True)
         return 0
+    if args.phase:
+        print(json.dumps(run_phase(args.phase, args.seed)), flush=True)
+        return 0
     dev = torch.device("cuda")
     cmp = Comparisons()
-    if args.long_windows:
-        genome, cohort, regions = make_state(args.seed, dev)
-        sampler = DeviceHaplotypeSampler(genome, cohort, regions,
-                                         SamplerConfig(seq_length=SEQ_LENGTH, batch_size=BATCH))
-        long = long_windows_phase(card_line(), args.seed, genome, cohort, regions, sampler, cmp)
-        print(json.dumps({"long_windows": long, "max_abs_err": cmp.max_abs_err}), flush=True)
-        return 0
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -3231,6 +2785,18 @@ def main() -> int:
             for K in (8, 64, 128):
                 d, c, s = random_draws(sampler, B, L, gen)
                 cmp.encode(sampler.index, d, c, s, L, K, f"B={B} L={L} K={K}")
+    # the main path's two launch shapes, sample()'s B=64 and sample_many(16)'s
+    # B=1024, on the sampler's draws of later steps
+    for step0, steps in ((1000, 1), (2000, 16)):
+        for i in range(4):
+            d = draw_windows(base, step0 + i * steps, steps, BATCH, *draw_args(sampler))
+            got = cmp.encode(sampler.index, d.donor_idx, d.chrom_idx, d.start, SEQ_LENGTH,
+                             K_MAX, f"sampled batch B={steps * BATCH}")
+            if i == 0:
+                lo, hi = window_bounds(sampler.index, d.donor_idx, d.chrom_idx, d.start,
+                                       SEQ_LENGTH)
+                check(torch.equal((hi - lo).int(), got.n_variants),
+                      f"window_bounds' n_in differs from the kernel's at B={steps * BATCH}")
     log(f"edge fixtures: {cmp.count} kernel/plain comparisons bit-equal so far")
 
     # -- 5. from_files ------------------------------------------------------
@@ -3241,40 +2807,6 @@ def main() -> int:
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
             check_from_files(tmp, args.seed, cfg, cmp)
-
-    # -- 6. times -----------------------------------------------------------
-    # host clocks first: a profiler session leaves the launch path slower
-    lat = {"sample()": [], "sample_many(16)": []}
-    for _ in range(50):
-        for name, fn in (("sample()", sampler.sample),
-                         ("sample_many(16)", lambda: sampler.sample_many(16))):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            lat[name].append((time.perf_counter() - t0) * 1e3)
-    n_rep = 20
-    t0 = time.perf_counter()
-    for _ in range(n_rep):
-        sampler.sample_many(16)
-    torch.cuda.synchronize()
-    wps = n_rep * 16 * BATCH / (time.perf_counter() - t0)
-    for name, v in lat.items():
-        q = np.percentile(v, [50, 80])
-        log(f"[{card}] {name} at B=64: {q[0]:.4f} ms median, {q[1]:.4f} ms p80 "
-            f"(50 calls, host clock, synchronized)")
-    log(f"[{card}] sample_many(16) pipelined: {wps:,.0f} windows/s ({n_rep} calls, "
-        f"one synchronize)")
-
-    # fresh random windows (the L2 is cold for most) at the main path's two
-    # launch shapes: sample()'s B=64 and sample_many(16)'s B=1024
-    index = sampler.index
-    t64 = window_times(card, index, window_batches(sampler, 1000, 200, 1), 40, cmp)
-    check(None not in (t64["ms"], t64["plain_ms"]), "the profiler recorded no device ops")
-    ms_kernel, ms_plain, ms_bound = t64["ms"], t64["plain_ms"], t64["bound_ms"]
-    log(f"[{card}] " + trace_calls(lambda: sampler.sample_many(16), 10, "sample_many(16)")[0])
-    window_times(card, index, window_batches(sampler, 2000, 40, 16), 4, cmp)
-    draw_t = draw_times(card, sampler)
 
     # -- 7-10. the converter -------------------------------------------------
     dec = DecodeComparisons()
@@ -3298,7 +2830,6 @@ def main() -> int:
         # -- 13. the training path -------------------------------------------
         t0 = time.perf_counter()
         train = train_path(args.seed, sampler, cmp)
-        train |= run_train_times(args.seed)
         log(f"training path phase: {time.perf_counter() - t0:.1f} s")
         log(json.dumps({"train": {"card": card, "config": "HaploFormerConfig() d_model 256, "
                                   "8 heads, 4 layers, bf16", "B": BATCH, "L": SEQ_LENGTH,
@@ -3332,7 +2863,7 @@ def main() -> int:
     # -- 19. long windows and K past 128 ------------------------------------
     torch.cuda.empty_cache()
     long_cmp = Comparisons()
-    long = long_windows_phase(card, args.seed, genome, cohort, regions, sampler, long_cmp)
+    long = long_windows_phase(args.seed, genome, cohort, regions, sampler, long_cmp)
     log(json.dumps({"long_windows": long}))
 
     kernels = [{
@@ -3343,11 +2874,7 @@ def main() -> int:
         "launches": (main_launches + train["window_launches"] + ref_launches
                      + parallel["train"]["window_launches"] + chain_launches),
         "max_abs_err": cmp.max_abs_err,
-        "ms": ms_kernel,
-        "plain_ms": ms_plain,
-        "bound_ms": ms_bound,
-        "bound_by": "bytes",
-        "library_ms": None,
+        **UNTIMED,
     }, {
         "name": "window_kernel_long",
         "route": "cuda",
@@ -3355,11 +2882,7 @@ def main() -> int:
         "replaces": "haplohyped_tpu/ops/pallas_window.py:178",
         "launches": long["launches"],
         "max_abs_err": long_cmp.max_abs_err,
-        "ms": long["event_ms"],
-        "plain_ms": long["plain_ms"],
-        "bound_ms": long["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
+        **UNTIMED,
     }]
     for name, line in (("vcf_decode12", 151), ("vcf_decode64", 70)):
         ms, plain_ms, bound = times[name]
@@ -3398,13 +2921,12 @@ def main() -> int:
         "launches": (main_draws + train["draw_launches"] + reference["draw_launches"]
                      + parallel["train"]["draw_launches"] + chain["draw_launches"]),
         "max_abs_err": draw_cmp.max_abs_err,
-        "ms": draw_t[BATCH]["ms"],
-        "plain_ms": draw_t[BATCH]["plain_ms"],
-        "bound_ms": draw_t[BATCH]["bound_ms"],
-        "bound_by": draw_t[BATCH]["bound_by"],
-        "library_ms": None,
+        **UNTIMED,
     })
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"comparisons": {"main": cmp.count, "draw": draw_cmp.count,
+                                    "lab": lab_cmp.count, "long": long_cmp.count,
+                                    "decode": dec.count}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -111,12 +111,3 @@ def test_trace_and_annotate(tmp_path):
         assert prof is None
     with trace("") as prof:
         assert prof is None
-
-
-def test_phase_times_needs_a_card(monkeypatch):
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA card is present")
-    from haplohyped_tpu_torch.tools import phase_times
-
-    monkeypatch.chdir(ROOT)
-    assert phase_times.main(["--phase", "reference", "--tag", "t"]) == 2

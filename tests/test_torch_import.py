@@ -91,9 +91,13 @@ def test_sources_import_no_jax(path):
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
 
 
-def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
-    """Without CUDA the smoke script exits non-zero and prints no result;
-    alone in a directory (without the package) it fails too."""
+@pytest.mark.parametrize("args", [[]] + [["--phase", p] for p in (
+    "single_pass", "tokenizer", "reference", "parallel", "long_windows")],
+    ids=lambda a: " ".join(a) or "all")
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path, args):
+    """Without CUDA the smoke script, whole or one phase, exits non-zero and
+    prints no result; alone in a directory (without the package) it fails
+    too."""
     import torch
 
     if torch.cuda.is_available():
@@ -101,8 +105,10 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     for cwd in (ROOT, tmp_path):
         out = subprocess.run(
-            [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+            [sys.executable, "chip_smoke.py", *args], cwd=cwd, capture_output=True,
             text=True, timeout=120, env=os.environ | {"PYTHONPATH": ""},
         )
         assert out.returncode != 0, cwd
         assert '"ok"' not in out.stdout, cwd
+        if cwd == ROOT:
+            assert "needs an NVIDIA card" in out.stderr, out.stderr

@@ -217,22 +217,3 @@ def test_check_refuses_bad_first(case):
     bad, err = _bad_tables(index.first)[case]
     with pytest.raises(err):
         window_kernel._check(index._replace(first=bad), *td, L, K)
-
-
-def test_wrapper_host_time_index_and_card(monkeypatch):
-    """The host-time script's synthetic index passes the kernel's checks and
-    encodes like the JAX package; without a card the script refuses."""
-    from haplohyped_tpu_torch.tools import wrapper_host_time as wht
-
-    index = wht.synthetic_index(3, torch.device("cpu"))
-    gen = torch.Generator().manual_seed(4)
-    draws = [torch.randint(0, hi, (16,), generator=gen, dtype=torch.int32)
-             for hi in (wht.D, wht.C, wht.LC - wht.L)]
-    window_kernel._check(index, *draws, wht.L, wht.K)
-    got = window_kernel.encode_windows_kernel(index, *draws, L=wht.L, K=wht.K)
-    want = jax_encode(*(jnp.asarray(t.numpy()) for t in index.plain_args),
-                      *(jnp.asarray(d.numpy()) for d in draws), L=wht.L, K=wht.K)
-    np.testing.assert_array_equal(got.hap1.numpy(), np.asarray(want.hap1))
-    np.testing.assert_array_equal(got.n_variants.numpy(), np.asarray(want.n_variants))
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert wht.main([]) == 2
