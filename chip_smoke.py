@@ -190,11 +190,33 @@ cite them (there is no phase 6; any failure exits non-zero; nothing is caught):
    196608, batch_size=2, max_variants_per_window=512)``, draws and encode
    against their plain versions, with no window past K; then two more
    batches at B=2, L=196,608, K=512.
+20. Enformer's conv-block kernels (``ops/batchnorm_gelu.py``), batch norm
+   and GELU.  First the main path: one bf16 training-mode forward and
+   backward of ``Enformer(EnformerConfig())`` on 2 window pairs, the
+   counters reset to 0 just before it: one forward and one backward call
+   each of the 14 conv blocks, 84 launches (the kernels line's count), no
+   ``batch_norm`` op dispatched and one ``sigmoid`` (the head's GELU).  Then
+   the wrapper in training mode against the plain version at the 14 block
+   input shapes of ``EnformerConfig()`` at N=4 sequences in bf16 and at 3 of
+   them in float32, on inputs, parameters and moving statistics from
+   ``--seed``: a bf16 output equal to the plain version's or one bf16 step
+   apart (a step at least ``2^-12`` of ``|a x| + |b| + |scale|``, float32's
+   floor near ``u = a x + b = 0``), at most 1% of elements
+   apart, a float32 one within 1e-5 of the
+   float64 plain version's norm; ``dx`` (against the float64 plain
+   version's rounded to the input's dtype), the scale's and bias's
+   gradients and both moving averages within 1e-3 of the float64 plain
+   version's norm; two runs on the same inputs bit-equal; and an eval-mode
+   forward and backward at the smallest shape.  At ``(4, 768, 196,608)`` in
+   bf16, the forward's and the backward's device ms (CUDA events) beside
+   their byte bounds (3 and 5 passes of 2 bytes an element), the plain
+   version's, and ``F.batch_norm`` with the three GELU ops in bf16 as the
+   library yardstick.
 
 ``--phase NAME`` runs one phase alone, with the set-up it needs, and prints
 its JSON line: ``single_pass`` (phases 7, 8 and 14), ``tokenizer`` (7, 8, 14
 and 16), ``reference`` (15), ``parallel`` (the converter files of phases 7
-and 14, then 17) or ``long_windows`` (2 and 19).  ``--parallel DIR`` is
+and 14, then 17), ``long_windows`` (2 and 19) or ``batchnorm_gelu`` (20).  ``--parallel DIR`` is
 phase 17's child process.
 
 The lines before the last are a JSON object ``{"train": {...}}`` of phase
@@ -202,7 +224,7 @@ The lines before the last are a JSON object ``{"train": {...}}`` of phase
 ``{"reference": {...}}`` of phase 15's, one ``{"tokenizer": {...}}`` of
 phase 16's, one ``{"parallel": {...}}`` of phase 17's, one ``{"chain":
 {...}}`` of phase 18's, one ``{"long_windows": {...}}`` of phase 19's, one
-with one entry per kernel (its launches, and its times where phases 10 and
+``{"batchnorm_gelu": {...}}`` of phase 20's, one with one entry per kernel (its launches, and its times where phases 10 and
 12 take them), then the comparisons made; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -227,6 +249,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from haplohyped_tpu_torch import DeviceHaplotypeSampler, GenomeTensors, MeshConfig, SamplerConfig
 from haplohyped_tpu_torch.core.constants import (
@@ -249,6 +272,7 @@ from haplohyped_tpu_torch.hostio.tabix import build_index
 from haplohyped_tpu_torch.hostio.variants import VariantTable
 from haplohyped_tpu_torch.hostio.vcf import VCFSource
 from haplohyped_tpu_torch.hostio.writer import BcfWriter, VcfHeader, VcfWriter
+from haplohyped_tpu_torch.models.enformer import ConvBlock, Enformer, EnformerConfig
 from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
 from haplohyped_tpu_torch.models.train import (
     create_train_state,
@@ -260,6 +284,7 @@ from haplohyped_tpu_torch.models.train import (
     train_on_sampler,
 )
 from haplohyped_tpu_torch.ops import _build
+from haplohyped_tpu_torch.ops.batchnorm_gelu import batchnorm_gelu, batchnorm_gelu_plain, gelu
 from haplohyped_tpu_torch.ops.decode_kernel import (
     decode_frames12_kernel,
     decode_frames_kernel,
@@ -338,6 +363,7 @@ from haplohyped_tpu_torch.pipeline.vcf_to_h5 import (
     upload_v2,
 )
 from haplohyped_tpu_torch.tools import window_kernel_lab as lab
+from haplohyped_tpu_torch.tools.batchnorm_gelu_check import BN_EPS, BN_MOMENTUM, bn_compare
 from haplohyped_tpu_torch.tools.deployment import N_REGIONS, make_cohort, make_regions, make_state
 from haplohyped_tpu_torch.utils.bitpack import pack_2bit
 
@@ -2622,19 +2648,170 @@ def chain_phase(card: str, seed: int, genome, cohort, regions, sampler,
 
 
 # ---------------------------------------------------------------------------
+# phase 20: Enformer's conv-block kernels, batch norm and GELU
+# ---------------------------------------------------------------------------
+
+#: sequences through the trunk in the benchmark's Enformer cell (2 pairs)
+BN_N = 4
+#: the float32 shapes: the widest block, a middle one, the final block
+BN_F32_SHAPES = 3
+
+
+def conv_block_shapes(cfg: EnformerConfig, n: int) -> list[tuple[int, int, int]]:
+    """The input shape of each of Enformer's conv blocks, in the order the
+    forward runs them: the stem's pointwise block, each tower stage's two,
+    the final block."""
+    L = cfg.sequence_length
+    shapes = [(n, cfg.channels // 2, L)]
+    c_in = cfg.channels // 2
+    for f in cfg.filter_list:
+        L //= 2
+        shapes += [(n, c_in, L), (n, f, L)]
+        c_in = f
+    return shapes + [(n, cfg.channels, cfg.target_length)]
+
+
+def bn_inputs(shape, dtype, gen) -> dict:
+    """x off zero mean and unit variance per channel, dz, the parameters and
+    moving statistics off their initial values."""
+    N, C, L = shape
+    dev = gen.device
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    x = (rnd(N, C, L) * (1 + rnd(C, 1).abs()) + rnd(C, 1)).to(dtype)
+    return {"x": x, "dz": rnd(N, C, L).to(dtype), "scale": 1 + 0.1 * rnd(C),
+            "bias": 0.1 * rnd(C), "mean": 0.1 * rnd(C), "var": 1 + 0.1 * rnd(C).abs()}
+
+
+def bn_times(inp: dict) -> dict:
+    """Device ms of a forward and of a backward (CUDA events, 10 calls
+    each): the kernels, the plain version, and ``F.batch_norm`` with the
+    GELU's three ops in bf16 (the library yardstick)."""
+    def library(x, scale, bias, mean, var, training, momentum, eps):
+        return gelu(torch.nn.functional.batch_norm(x, mean, var, scale, bias, training,
+                                                   momentum, eps))
+
+    out = {}
+    for name, fn in (("kernel", batchnorm_gelu), ("plain", batchnorm_gelu_plain),
+                     ("library", library)):
+        x = inp["x"].detach().requires_grad_()
+        scale, bias = (inp[k].detach().requires_grad_() for k in ("scale", "bias"))
+        mean, var = inp["mean"].clone(), inp["var"].clone()
+        args = (x, scale, bias, mean, var, True, BN_MOMENTUM, BN_EPS)
+        fn(*args)  # warm-up
+        fwd = device_ms(fn, [args] * 10)[0]
+        z = fn(*args)
+        bwd = device_ms(lambda: torch.autograd.grad(z, (x, scale, bias), inp["dz"],
+                                                    retain_graph=True), [()] * 10)[0]
+        out[name] = {"forward_ms": fwd, "backward_ms": bwd}
+        del z
+        torch.cuda.empty_cache()
+    n = inp["x"].numel() * inp["x"].element_size()
+    out["bound"] = {"forward_ms": 3 * n / HBM_BYTES_PER_S * 1e3,
+                    "backward_ms": 5 * n / HBM_BYTES_PER_S * 1e3}
+    return out
+
+
+def bn_step(seed: int) -> dict:
+    """The main path: one bf16 training-mode forward and backward of
+    ``Enformer(EnformerConfig())`` on the benchmark cell's ``BN_N // 2``
+    window pairs, the counters reset to 0 just before it.  Each conv block
+    calls the kernels once forward and once backward (3 + 3 launches), and
+    no op dispatched in the step is a batch norm; the one ``sigmoid`` is the
+    head's GELU."""
+    cfg = EnformerConfig()
+    model = Enformer(cfg, seed=seed, device="cuda").train()
+    blocks = sum(isinstance(m, ConvBlock) for m in model.modules())
+    check(blocks == 2 + 2 * cfg.tower_stages, f"{blocks} conv blocks")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    h1, h2 = (torch.randint(0, 5, (BN_N // 2, cfg.sequence_length), generator=gen,
+                            device="cuda").to(torch.int8) for _ in range(2))
+    seen: dict = {}
+
+    class Names(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            seen[name] = seen.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    batchnorm_gelu.launches = batchnorm_gelu.forward_calls = batchnorm_gelu.backward_calls = 0
+    t0 = time.perf_counter()
+    with Names():
+        model(h1, h2, generator=gen)["rates"].mean().backward()
+    torch.cuda.synchronize()
+    out = {"blocks": blocks, "launches": batchnorm_gelu.launches,
+           "forward_calls": batchnorm_gelu.forward_calls,
+           "backward_calls": batchnorm_gelu.backward_calls,
+           "batch_norm_ops": sum(n for k, n in seen.items() if "batch_norm" in k),
+           "sigmoid_ops": seen.get("sigmoid", 0)}
+    log(f"batchnorm_gelu: a train-mode step of Enformer(EnformerConfig()) at {BN_N} sequences "
+        f"in {time.perf_counter() - t0:.1f} s: {out}")
+    check(out["forward_calls"] == out["backward_calls"] == blocks,
+          f"{out['forward_calls']} forward and {out['backward_calls']} backward calls for "
+          f"{blocks} conv blocks")
+    check(out["launches"] == 6 * blocks, f"{out['launches']} launches for {blocks} conv blocks")
+    check(out["batch_norm_ops"] == 0, f"{out['batch_norm_ops']} batch_norm ops dispatched")
+    check(out["sigmoid_ops"] == 1, f"{out['sigmoid_ops']} sigmoid ops, not the head's one")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def batchnorm_gelu_phase(card: str, seed: int) -> dict:
+    """Phase 20.  Returns the main path's step, the comparisons, their worst
+    gaps, times and launches."""
+    dev = torch.device("cuda")
+    step = bn_step(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    shapes = conv_block_shapes(EnformerConfig(), BN_N)
+    picked = (0, len(shapes) // 2, len(shapes) - 1)
+    cases = [(s, torch.bfloat16) for s in shapes]
+    cases += [(shapes[i], torch.float32) for i in picked[:BN_F32_SHAPES]]
+    batchnorm_gelu.launches = batchnorm_gelu.forward_calls = batchnorm_gelu.backward_calls = 0
+    worst: dict = {}
+    t0 = time.perf_counter()
+    for shape, dtype in cases:
+        inp = bn_inputs(shape, dtype, gen)
+        for k, v in bn_compare(inp, True, f"batchnorm_gelu {shape} {dtype}").items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        del inp
+        torch.cuda.empty_cache()
+    eval_gaps = bn_compare(bn_inputs(shapes[-1], torch.bfloat16, gen), False,
+                           f"batchnorm_gelu eval {shapes[-1]}")
+    n_cmp = len(cases) + 1
+    launches = batchnorm_gelu.launches
+    # a comparison runs the kernels twice: 2 x (3 + 3) launches in training, 2 x (2 + 3) in eval
+    check(launches == 12 * len(cases) + 10, f"{launches} batchnorm_gelu launches")
+    check(batchnorm_gelu.forward_calls == batchnorm_gelu.backward_calls == 2 * n_cmp,
+          "one backward call a forward call")
+    log(f"batchnorm_gelu: {n_cmp} comparisons ({len(shapes)} block shapes in bf16, "
+        f"{BN_F32_SHAPES} in float32, one in eval mode) in {time.perf_counter() - t0:.1f} s, "
+        f"{launches} launches; worst gaps {worst}, eval {eval_gaps}")
+    inp = bn_inputs(shapes[0], torch.bfloat16, gen)
+    times = bn_times(inp)
+    log(f"batchnorm_gelu at {shapes[0]} bf16 ({card}): {times}")
+    return {"step": step, "comparisons": n_cmp, "launches": launches, "worst": worst,
+            "eval": eval_gaps, "shape": list(shapes[0]), "times": times}
+
+
+# ---------------------------------------------------------------------------
 
 #: the kernels line's times of the window and draw kernels, which the
 #: benchmark measures (``portbench/run.py``: ``link_roofline.chain``,
 #: ``window_roofline.enformer`` and each cell's device-op breakdown)
 UNTIMED = {"ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None}
 #: the phases ``--phase`` runs alone
-PHASES = ("single_pass", "tokenizer", "reference", "parallel", "long_windows")
+PHASES = ("single_pass", "tokenizer", "reference", "parallel", "long_windows", "batchnorm_gelu")
 
 
 def run_phase(name: str, seed: int) -> dict:
     """``--phase name``: that phase alone, after the set-up it needs (its
     kernels build at first use).  Returns its JSON line's object."""
     card, dev = card_line(), torch.device("cuda")
+    if name == "batchnorm_gelu":
+        return {"batchnorm_gelu": batchnorm_gelu_phase(card, seed)}
     if name == "long_windows":
         genome, cohort, regions = make_state(seed, dev)
         sampler = DeviceHaplotypeSampler(genome, cohort, regions,
@@ -2866,6 +3043,11 @@ def main() -> int:
     long = long_windows_phase(args.seed, genome, cohort, regions, sampler, long_cmp)
     log(json.dumps({"long_windows": long}))
 
+    # -- 20. Enformer's conv-block kernels ---------------------------------
+    torch.cuda.empty_cache()
+    bn = batchnorm_gelu_phase(card, args.seed)
+    log(json.dumps({"batchnorm_gelu": bn}))
+
     kernels = [{
         "name": "window_kernel",
         "route": "cuda",
@@ -2923,10 +3105,24 @@ def main() -> int:
         "max_abs_err": draw_cmp.max_abs_err,
         **UNTIMED,
     })
+    bn_ms = bn["times"]
+    kernels.append({
+        "name": "batchnorm_gelu",
+        "route": "cuda",
+        "source": "haplohyped_tpu_torch/csrc/batchnorm_gelu.cu",
+        "replaces": None,  # no Pallas kernel: Enformer's F.batch_norm and GELU ops
+        "launches": bn["step"]["launches"],  # one Enformer step; the comparisons' own apart
+        "max_abs_err": None,  # held to the plain version by bf16 steps and norms, phase 20
+        "ms": {k: bn_ms["kernel"][k] for k in ("forward_ms", "backward_ms")},
+        "plain_ms": bn_ms["plain"],
+        "bound_ms": bn_ms["bound"],
+        "bound_by": "bytes",
+        "library_ms": bn_ms["library"],
+    })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"comparisons": {"main": cmp.count, "draw": draw_cmp.count,
                                     "lab": lab_cmp.count, "long": long_cmp.count,
-                                    "decode": dec.count}}))
+                                    "decode": dec.count, "batchnorm_gelu": bn["comparisons"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -47,15 +47,20 @@ generator seeded alike draws the same masks.
 
 The cast rules are HaploFormer's (``models/haploformer.py``): float32
 parameters, every op in ``cfg.compute_dtype``, batch and layer norms with
-float32 statistics and affine, the rates float32.
+float32 statistics and affine, the rates float32; a conv block's batch norm
+and GELU compute in float32 and round once to ``cfg.compute_dtype``.
 
 Layouts: every activation of the stem and the conv tower is a contiguous
 channels-first ``(N, C, L)`` tensor, and each op there reads and writes it
-in place.  The softmax pooling's logits GEMM (:class:`PoolingLogits`)
-reads it as it lies, in the forward and in the backward, so no pooled
-activation is copied into another layout.  The transformer runs
-token-major, ``(N, T, C)``, from one copy at the hand-over.  No op here is
-a hand-written kernel.
+in place.  Each conv block's batch norm and GELU are one hand-written
+kernel pass on that layout (``ops/batchnorm_gelu.py``, ``csrc/
+batchnorm_gelu.cu``): float32 between the block's input and the conv's
+input, rounded once, and only the input kept for the backward.  The softmax
+pooling's logits GEMM (:class:`PoolingLogits`) reads the layout as it lies,
+in the forward and in the backward, so no pooled activation is copied into
+another layout.  The transformer runs token-major, ``(N, T, C)``, from one
+copy at the hand-over, and the head's crop is copied back channels-first
+for the final block.  Every other op here is a torch op.
 """
 
 from __future__ import annotations
@@ -71,6 +76,8 @@ from torch import nn
 from haplohyped_tpu_torch.core.config import resolve_device
 from haplohyped_tpu_torch.core.profiling import annotate
 from haplohyped_tpu_torch.models.haploformer import Conv, Dense, LayerNorm, _lecun_normal
+from haplohyped_tpu_torch.ops.batchnorm_gelu import batchnorm_gelu, gelu
+from haplohyped_tpu_torch.ops.batchnorm_gelu import load as load_batchnorm_gelu
 from haplohyped_tpu_torch.ops.haplotype_window import windows_to_onehot
 
 #: Sonnet's ``LayerNorm`` and ``BatchNorm`` epsilon
@@ -153,11 +160,6 @@ class EnformerConfig:
         return next(iter(self.heads.values()))
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """The published GELU: ``sigmoid(1.702 x) x``."""
-    return torch.sigmoid(1.702 * x) * x
-
-
 def dropout(x: torch.Tensor, rate: float, g: torch.Generator | None) -> torch.Tensor:
     """``x`` with each element kept where ``torch.rand(x.shape, generator=g)
     >= rate``, divided by ``1 - rate``; ``x`` itself without ``g``."""
@@ -168,9 +170,10 @@ def dropout(x: torch.Tensor, rate: float, g: torch.Generator | None) -> torch.Te
 
 
 class BatchNorm(nn.Module):
-    """Sonnet's ``BatchNorm`` over the channels of ``(N, C, L)``: in training
-    mode the batch's statistics (over N and L), in eval mode the moving
-    ones; statistics and affine in float32, the result in the input's dtype."""
+    """Sonnet's ``BatchNorm`` over the channels of ``(N, C, L)``: its float32
+    scale and offset and moving statistics, which :class:`ConvBlock` hands
+    to :func:`~haplohyped_tpu_torch.ops.batchnorm_gelu.batchnorm_gelu` with
+    the momentum ``1 - decay``."""
 
     def __init__(self, c: int, decay: float, eps: float):
         super().__init__()
@@ -180,14 +183,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("moving_mean", torch.zeros(c))
         self.register_buffer("moving_variance", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.moving_mean, self.moving_variance, self.scale, self.bias,
-                            self.training, 1 - self.decay, self.eps)
-
 
 class ConvBlock(nn.Module):
     """``conv_block(f, w)``: batch norm, GELU, SAME ``Conv1D(f, w)`` with a
-    bias, on ``(N, C, L)``."""
+    bias, on a contiguous ``(N, C, L)``.  The batch norm and the GELU are
+    one :func:`~haplohyped_tpu_torch.ops.batchnorm_gelu.batchnorm_gelu`
+    call: the Hopper kernels on the card, rounded once to the compute dtype;
+    ``F.batch_norm`` then :func:`gelu` in float32 on the CPU."""
 
     def __init__(self, c_in: int, f: int, width: int, cfg: EnformerConfig, g: torch.Generator):
         super().__init__()
@@ -195,7 +197,9 @@ class ConvBlock(nn.Module):
         self.conv = Conv(c_in, f, width, cfg.compute_dtype, g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(gelu(self.norm(x)))
+        n = self.norm
+        return self.conv(batchnorm_gelu(x, n.scale, n.bias, n.moving_mean, n.moving_variance,
+                                        n.training, 1 - n.decay, n.eps))
 
 
 class PoolingLogits(torch.autograd.Function):
@@ -416,6 +420,8 @@ class Enformer(nn.Module):
         self.final = ConvBlock(C, 2 * C, 1, cfg, g)
         self.head = Dense((2 * C,), (cfg.num_tracks,), dt, g)
         self.to(dev)
+        if dev.type == "cuda":
+            load_batchnorm_gelu()  # the conv blocks' kernels: a first build falls in set-up
 
     def trunk(self, codes: torch.Tensor, g: torch.Generator | None) -> torch.Tensor:
         """``(N, L)`` codes to the transformer's ``(N, T, C)`` output."""
@@ -446,7 +452,8 @@ class Enformer(nn.Module):
         x = self.trunk(torch.cat([hap1, hap2]), g)
         with annotate("hh.enformer.head"):
             trim = (x.shape[1] - cfg.target_length) // 2
-            x = x[:, trim: trim + cfg.target_length].transpose(1, 2)  # (N, C, target)
+            # (N, C, target), channels-first contiguous for the final block's kernels
+            x = x[:, trim: trim + cfg.target_length].transpose(1, 2).contiguous()
             x = gelu(dropout(self.final(x), cfg.final_dropout_rate, g))
             r = F.softplus(self.head(x.transpose(1, 2)).float())
             return {"rates": (r[:B] + r[B:]) / 2}
