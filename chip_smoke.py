@@ -213,10 +213,27 @@ cite them (there is no phase 6; any failure exits non-zero; nothing is caught):
    version's, and ``F.batch_norm`` with the three GELU ops in bf16 as the
    library yardstick.
 
+21. The chunked state-space scan's kernels (``ops/ssd_scan.py``).  First
+   the main path: one bf16 forward and backward of
+   ``GraniteHybrid(GraniteHybridConfig())`` on one window pair of 8,192 bp
+   (the benchmark cell's step), the counters reset to 0 just before it: one
+   forward and one backward call each of the 9 Mamba-2 mixers, 72 launches
+   (the kernels line's count), a finite loss, and no tensor as large as the
+   step's logits.  Then, forward and backward, against the plain version in
+   float32 on the same bf16 inputs (``tools/ssd_scan_check.py``): at the
+   cell's ``(2, 8192)`` with 64 heads of 64 and a state of 128, and at ``(3,
+   768)`` with 5 heads of 24 and a state of 40; the output and every
+   gradient within 2% of the plain version's norm, two runs bit-equal where
+   no atomics sum; 3 launches a forward and 5 a backward.  At the cell's
+   shape, the forward's and the backward's device ms (CUDA events, 10 calls;
+   the plain version 1), the kernels with their ``torch.bmm`` products; the
+   bound is the benchmark's (``ssd_fwd_roofline.granite``).
+
 ``--phase NAME`` runs one phase alone, with the set-up it needs, and prints
 its JSON line: ``single_pass`` (phases 7, 8 and 14), ``tokenizer`` (7, 8, 14
 and 16), ``reference`` (15), ``parallel`` (the converter files of phases 7
-and 14, then 17), ``long_windows`` (2 and 19) or ``batchnorm_gelu`` (20).  ``--parallel DIR`` is
+and 14, then 17), ``long_windows`` (2 and 19), ``batchnorm_gelu`` (20) or
+``ssd_scan`` (21).  ``--parallel DIR`` is
 phase 17's child process.
 
 The lines before the last are a JSON object ``{"train": {...}}`` of phase
@@ -224,7 +241,8 @@ The lines before the last are a JSON object ``{"train": {...}}`` of phase
 ``{"reference": {...}}`` of phase 15's, one ``{"tokenizer": {...}}`` of
 phase 16's, one ``{"parallel": {...}}`` of phase 17's, one ``{"chain":
 {...}}`` of phase 18's, one ``{"long_windows": {...}}`` of phase 19's, one
-``{"batchnorm_gelu": {...}}`` of phase 20's, one with one entry per kernel (its launches, and its times where phases 10 and
+``{"batchnorm_gelu": {...}}`` of phase 20's, one ``{"ssd_scan": {...}}`` of
+phase 21's, one with one entry per kernel (its launches, and its times where phases 10 and
 12 take them), then the comparisons made; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -273,6 +291,7 @@ from haplohyped_tpu_torch.hostio.variants import VariantTable
 from haplohyped_tpu_torch.hostio.vcf import VCFSource
 from haplohyped_tpu_torch.hostio.writer import BcfWriter, VcfHeader, VcfWriter
 from haplohyped_tpu_torch.models.enformer import ConvBlock, Enformer, EnformerConfig
+from haplohyped_tpu_torch.models.granite_hybrid import GraniteHybrid, GraniteHybridConfig
 from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
 from haplohyped_tpu_torch.models.train import (
     create_train_state,
@@ -285,6 +304,7 @@ from haplohyped_tpu_torch.models.train import (
 )
 from haplohyped_tpu_torch.ops import _build
 from haplohyped_tpu_torch.ops.batchnorm_gelu import batchnorm_gelu, batchnorm_gelu_plain, gelu
+from haplohyped_tpu_torch.ops.ssd_scan import ssd_scan, ssd_scan_plain
 from haplohyped_tpu_torch.ops.decode_kernel import (
     decode_frames12_kernel,
     decode_frames_kernel,
@@ -364,6 +384,7 @@ from haplohyped_tpu_torch.pipeline.vcf_to_h5 import (
 )
 from haplohyped_tpu_torch.tools import window_kernel_lab as lab
 from haplohyped_tpu_torch.tools.batchnorm_gelu_check import BN_EPS, BN_MOMENTUM, bn_compare
+from haplohyped_tpu_torch.tools.ssd_scan_check import CELL_SHAPE, ssd_compare, ssd_inputs
 from haplohyped_tpu_torch.tools.deployment import N_REGIONS, make_cohort, make_regions, make_state
 from haplohyped_tpu_torch.utils.bitpack import pack_2bit
 
@@ -2796,6 +2817,100 @@ def batchnorm_gelu_phase(card: str, seed: int) -> dict:
             "eval": eval_gaps, "shape": list(shapes[0]), "times": times}
 
 
+#: bases a sequence in the Granite hybrid cell's step (one window pair)
+GRANITE_L = 8192
+
+
+def ssd_step(seed: int) -> dict:
+    """The main path: one bf16 forward and backward of
+    ``GraniteHybrid(GraniteHybridConfig())`` on the benchmark cell's one
+    window pair of ``GRANITE_L`` bases, the counters reset to 0 just before
+    it.  Each Mamba-2 mixer calls the scan once forward and once backward (3
+    + 5 launches); no op's output is as large as the step's logits."""
+    cfg = GraniteHybridConfig()
+    model = GraniteHybrid(cfg, seed, device="cuda").train()
+    mixers = cfg.layer_types.count("mamba")
+    logits = 2 * (GRANITE_L - 1) * cfg.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    h1, h2 = (torch.randint(0, 5, (1, GRANITE_L), generator=gen,
+                            device="cuda").to(torch.int8) for _ in range(2))
+    largest = [0]
+
+    class Sizes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    largest[0] = max(largest[0], t.numel())
+            return out
+
+    ssd_scan.launches = ssd_scan.forward_calls = ssd_scan.backward_calls = 0
+    t0 = time.perf_counter()
+    with Sizes():
+        loss = model.loss(h1, h2)[0]
+        loss.backward()
+    torch.cuda.synchronize()
+    out = {"mixers": mixers, "launches": ssd_scan.launches,
+           "forward_calls": ssd_scan.forward_calls, "backward_calls": ssd_scan.backward_calls,
+           "loss": loss.item(), "largest_numel": largest[0], "logits_numel": logits}
+    log(f"ssd_scan: a step of GraniteHybrid(GraniteHybridConfig()) on 1 window pair of "
+        f"{GRANITE_L} bp in {time.perf_counter() - t0:.1f} s: {out}")
+    check(out["forward_calls"] == out["backward_calls"] == mixers,
+          f"{out['forward_calls']} forward and {out['backward_calls']} backward calls for "
+          f"{mixers} Mamba-2 mixers")
+    check(out["launches"] == 8 * mixers, f"{out['launches']} launches for {mixers} mixers")
+    check(math.isfinite(out["loss"]), f"loss {out['loss']}")
+    check(out["largest_numel"] < logits, f"a tensor of {out['largest_numel']} elements, the "
+          f"step's logits {logits}")
+    del model, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssd_scan_phase(card: str, seed: int) -> dict:
+    """Phase 21.  Returns the main path's step, the comparisons' gaps, their
+    launches and the times at the cell's shape."""
+    dev = torch.device("cuda")
+    step = ssd_step(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    ssd_scan.launches = ssd_scan.forward_calls = ssd_scan.backward_calls = 0
+    t0 = time.perf_counter()
+    gaps = {}
+    for shape in (CELL_SHAPE, (3, 768, 5, 24, 40)):
+        gaps[str(shape)] = ssd_compare(ssd_inputs(shape, gen, dev))
+        torch.cuda.empty_cache()
+    # a comparison runs the kernels twice
+    check(ssd_scan.forward_calls == ssd_scan.backward_calls == 4,
+          f"{ssd_scan.forward_calls} forward and {ssd_scan.backward_calls} backward calls")
+    launches = ssd_scan.launches
+    check(launches == 4 * (3 + 5), f"{launches} ssd_scan launches")
+    log(f"ssd_scan: 2 shapes in {time.perf_counter() - t0:.1f} s, {launches} launches; "
+        f"gaps {gaps}")
+    inp = ssd_inputs(CELL_SHAPE, gen, dev)
+    times = {}
+    # the plain version one call each: its backward launches ~480 kernels (a
+    # loop over the 32 chunks), so three overflow the card's queue of pending
+    # launches and the host falls behind device_ms's sleep
+    for name, fn, wide, n in (("kernel", ssd_scan, None, 10),
+                              ("plain", ssd_scan_plain, torch.float32, 1)):
+        cast = (lambda t: t.to(wide)) if wide is not None else (lambda t: t)
+        args = [cast(inp[k]).detach().requires_grad_() for k in ("x", "dt", "A", "B", "C", "D")]
+        dy = cast(inp["dy"])
+        y = fn(*args, 256)
+        torch.autograd.grad(y, args, dy)  # warm-up
+        fwd = device_ms(lambda: fn(*args, 256), [()] * n)[0]
+        y = fn(*args, 256)
+        bwd = device_ms(lambda: torch.autograd.grad(y, args, dy, retain_graph=True),
+                        [()] * n)[0]
+        times[name] = {"forward_ms": fwd, "backward_ms": bwd}
+        del y, args
+        torch.cuda.empty_cache()
+    log(f"ssd_scan at {CELL_SHAPE} ({card}): {times} (the kernel times include the "
+        f"torch.bmm products)")
+    return {"step": step, "comparisons": len(gaps), "gaps": gaps, "launches": launches,
+            "times": times}
+
+
 # ---------------------------------------------------------------------------
 
 #: the kernels line's times of the window and draw kernels, which the
@@ -2803,7 +2918,8 @@ def batchnorm_gelu_phase(card: str, seed: int) -> dict:
 #: ``window_roofline.enformer`` and each cell's device-op breakdown)
 UNTIMED = {"ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None}
 #: the phases ``--phase`` runs alone
-PHASES = ("single_pass", "tokenizer", "reference", "parallel", "long_windows", "batchnorm_gelu")
+PHASES = ("single_pass", "tokenizer", "reference", "parallel", "long_windows", "batchnorm_gelu",
+          "ssd_scan")
 
 
 def run_phase(name: str, seed: int) -> dict:
@@ -2812,6 +2928,8 @@ def run_phase(name: str, seed: int) -> dict:
     card, dev = card_line(), torch.device("cuda")
     if name == "batchnorm_gelu":
         return {"batchnorm_gelu": batchnorm_gelu_phase(card, seed)}
+    if name == "ssd_scan":
+        return {"ssd_scan": ssd_scan_phase(card, seed)}
     if name == "long_windows":
         genome, cohort, regions = make_state(seed, dev)
         sampler = DeviceHaplotypeSampler(genome, cohort, regions,
@@ -3048,6 +3166,11 @@ def main() -> int:
     bn = batchnorm_gelu_phase(card, args.seed)
     log(json.dumps({"batchnorm_gelu": bn}))
 
+    # -- 21. the chunked scan's kernels ------------------------------------
+    torch.cuda.empty_cache()
+    ssd = ssd_scan_phase(card, args.seed)
+    log(json.dumps({"ssd_scan": ssd}))
+
     kernels = [{
         "name": "window_kernel",
         "route": "cuda",
@@ -3119,10 +3242,25 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": bn_ms["library"],
     })
+    ssd_ms = ssd["times"]
+    kernels.append({
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "haplohyped_tpu_torch/csrc/ssd_scan.cu",
+        "replaces": None,  # no Pallas kernel: the JAX package has no state-space model
+        "launches": ssd["step"]["launches"],  # one Granite step; the comparisons' own apart
+        "max_abs_err": None,  # held to the plain version by shares of its norm, phase 21
+        "ms": ssd_ms["kernel"],
+        "plain_ms": ssd_ms["plain"],
+        "bound_ms": None,  # the benchmark's: ssd_fwd_roofline.granite, ssd_bwd_roofline.granite
+        "bound_by": None,
+        "library_ms": None,
+    })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"comparisons": {"main": cmp.count, "draw": draw_cmp.count,
                                     "lab": lab_cmp.count, "long": long_cmp.count,
-                                    "decode": dec.count, "batchnorm_gelu": bn["comparisons"]}}))
+                                    "decode": dec.count, "batchnorm_gelu": bn["comparisons"],
+                                    "ssd_scan": ssd["comparisons"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

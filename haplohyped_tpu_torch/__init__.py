@@ -27,6 +27,7 @@ from haplohyped_tpu_torch.data.genome import GenomeTensors
 from haplohyped_tpu_torch.data.regions import load_bed_regions
 from haplohyped_tpu_torch.data.sampler import DeviceHaplotypeSampler, HaplotypeBatch
 from haplohyped_tpu_torch.models.enformer import Enformer, EnformerConfig
+from haplohyped_tpu_torch.models.granite_hybrid import GraniteHybrid, GraniteHybridConfig
 from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
 from haplohyped_tpu_torch.models.train import train_on_sampler
 from haplohyped_tpu_torch.version import __version__
@@ -37,6 +38,8 @@ __all__ = [
     "Enformer",
     "EnformerConfig",
     "GenomeTensors",
+    "GraniteHybrid",
+    "GraniteHybridConfig",
     "HaploFormer",
     "HaploFormerConfig",
     "HaplotypeBatch",

@@ -1,4 +1,5 @@
 from haplohyped_tpu_torch.models.enformer import Enformer, EnformerConfig
+from haplohyped_tpu_torch.models.granite_hybrid import GraniteHybrid, GraniteHybridConfig
 from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
 from haplohyped_tpu_torch.models.train import (
     TrainState,
@@ -10,6 +11,8 @@ from haplohyped_tpu_torch.models.train import (
 __all__ = [
     "Enformer",
     "EnformerConfig",
+    "GraniteHybrid",
+    "GraniteHybridConfig",
     "HaploFormer",
     "HaploFormerConfig",
     "TrainState",

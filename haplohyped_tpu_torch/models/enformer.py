@@ -159,6 +159,16 @@ class EnformerConfig:
     def num_tracks(self) -> int:
         return next(iter(self.heads.values()))
 
+    def create_model(self, sample_batch: tuple, seed, device, mesh=None) -> "Enformer":
+        """The model, for windows of ``sequence_length``; it takes no mesh."""
+        if mesh is not None:
+            raise ValueError("Enformer trains on one device: its batch norm takes the local "
+                             "batch's statistics, and no tensor-parallel rules cut its layers")
+        if sample_batch[0].shape[1] != self.sequence_length:
+            raise ValueError(f"windows of {sample_batch[0].shape[1]} bp for an Enformer of "
+                             f"sequence_length={self.sequence_length}")
+        return Enformer(self, seed, device=resolve_device(device))
+
 
 def dropout(x: torch.Tensor, rate: float, g: torch.Generator | None) -> torch.Tensor:
     """``x`` with each element kept where ``torch.rand(x.shape, generator=g)
@@ -457,6 +467,28 @@ class Enformer(nn.Module):
             x = gelu(dropout(self.final(x), cfg.final_dropout_rate, g))
             r = F.softplus(self.head(x.transpose(1, 2)).float())
             return {"rates": (r[:B] + r[B:]) / 2}
+
+    clip_global_norm = property(lambda self: self.cfg.clip_global_norm)
+
+    def loss(self, hap1, hap2, n_variants=None, targets=None, generator=None):
+        """``(loss, {})``: the Poisson loss of the pair's rates against
+        ``targets`` ``(B, target_length, tracks)``, dropout drawn from
+        ``generator``."""
+        if targets is None:
+            raise ValueError("Enformer trains on targets: give make_fused_train_step "
+                             "a targets callback, or the train step targets=")
+        return poisson_loss(self(hap1, hap2, generator)["rates"], targets), {}
+
+    def make_optimizer(self, learning_rate: float) -> torch.optim.Optimizer:
+        """``Adam`` (no weight decay) at optax's betas and epsilon."""
+        return torch.optim.Adam(self.parameters(), lr=learning_rate, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=0.0)
+
+    def dropout_generator(self, seed) -> torch.Generator:
+        """The generator the dropout draws from, on the model's device,
+        seeded from ``seed`` (an int or a generator's initial seed)."""
+        s = seed.initial_seed() if isinstance(seed, torch.Generator) else seed
+        return torch.Generator(device=self.head.kernel.device).manual_seed(s)
 
 
 def poisson_loss(rates: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

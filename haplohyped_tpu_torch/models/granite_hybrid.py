@@ -1,0 +1,388 @@
+"""A hybrid Mamba-2/attention nucleotide language model with the widths of
+IBM's Granite 4.0-H Micro, trained on both haplotypes of the sampler's
+windows.
+
+The layer equations are those of the published ``config.json`` of
+``ibm-granite/granite-4.0-h-micro`` (model type ``granitemoehybrid``, no
+experts); :class:`GraniteHybridConfig` keeps its key names (the published
+``mamba_conv_bias: true``, ``mamba_proj_bias`` and ``attention_bias: false``
+are built in), and its defaults are the published model but for the depth
+(``layer_types`` lists the layers held; the published model has 40,
+attention at 5, 15, 25 and 35).
+
+- Embedding: ``h = embed(tokens) * embedding_multiplier``; a window's int8
+  base codes (A, C, G, T, N: 0-4) index ``token_ids``, the five token ids.
+- Each layer: ``h = h + r * mixer(rmsnorm(h))``, then ``h = h + r *
+  mlp(rmsnorm(h))``, ``r = residual_multiplier``.  The MLP is
+  ``output_linear(silu(a) * b)``, ``[a, b] = input_linear(x)``.
+- A ``mamba`` mixer (Mamba-2): ``in_proj`` to ``z`` (``mamba_expand *
+  hidden_size``), ``xBC`` (that plus ``2 * mamba_n_groups *
+  mamba_d_state``) and ``dt`` (``mamba_n_heads``); ``xBC`` through a causal
+  depthwise conv1d of width ``mamba_d_conv`` with a bias, then SiLU, split
+  into ``x``, ``B`` and ``C``; ``dt = softplus(dt + dt_bias)``, ``A =
+  -exp(A_log)``; the chunked scan (``ops/ssd_scan.py``, float32 state) in
+  chunks of ``mamba_chunk_size``; then ``rmsnorm(y * silu(z)) * w`` (the gate
+  before the norm, over the whole width: one group) and ``out_proj``.
+- An ``attention`` mixer: grouped-query attention (``num_attention_heads``
+  queries, ``num_key_value_heads`` keys and values, head size ``hidden_size
+  / num_attention_heads``), causal, scaled by ``attention_multiplier``, no
+  position encoding (``position_embedding_type: nope``), through
+  ``F.scaled_dot_product_attention`` (on a card its flash path, which never
+  holds the ``T x T`` scores).
+- Head: a final RMSNorm, the tied embedding as the output matrix, the logits
+  divided by ``logits_scaling``.  The loss is the mean next-token
+  cross-entropy over both haplotypes' ``L - 1`` predicted positions, computed
+  by :class:`ChunkedHeadLoss` over ``loss_chunk`` tokens at a time, so no
+  tensor ever holds all the logits.
+
+Cast rules (the port's, as HaploFormer's): float32 parameters; every matrix
+product, the conv and the residual stream in ``compute_dtype``; the norms'
+statistics and affine in float32, rounded once; ``A_log``, ``dt_bias``,
+``D``, ``dt``, the scan's state and the loss's log-sum-exp in float32.
+
+The model owns its training: :meth:`GraniteHybrid.loss`,
+:meth:`GraniteHybrid.make_optimizer` (AdamW, weight decay on the matrices
+only) and ``clip_global_norm``.  Spans (``core/profiling.py``):
+``hh.granite.embed``, ``hh.granite.mamba`` (one a mixer),
+``hh.granite.attention``, ``hh.granite.mlp`` (one a layer) and
+``hh.granite.head_loss``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.nn.attention import SDPBackend, sdpa_kernel
+
+from haplohyped_tpu_torch.core.config import resolve_device
+from haplohyped_tpu_torch.core.profiling import annotate
+from haplohyped_tpu_torch.ops.ssd_scan import load as load_ssd_scan
+from haplohyped_tpu_torch.ops.ssd_scan import ssd_scan
+
+#: the published 40 layers' first period: attention at index 5
+PERIOD = ("mamba",) * 5 + ("attention",) + ("mamba",) * 4
+
+
+@dataclass(frozen=True)
+class GraniteHybridConfig:
+    hidden_size: int = 2048
+    intermediate_size: int = 8192
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    mamba_n_heads: int = 64
+    mamba_d_head: int = 64
+    mamba_d_state: int = 128
+    mamba_n_groups: int = 1
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_chunk_size: int = 256
+    attention_multiplier: float = 0.015625
+    embedding_multiplier: float = 12.0
+    residual_multiplier: float = 0.22
+    logits_scaling: float = 8.0
+    rms_norm_eps: float = 1e-5
+    vocab_size: int = 100352
+    layer_types: tuple = PERIOD
+    #: the token ids of the base codes 0-4 (A, C, G, T, N)
+    token_ids: tuple = (32, 34, 38, 51, 45)
+    #: tokens a chunk of the head and loss
+    loss_chunk: int = 4096
+    #: AdamW's (beta1, beta2), epsilon and weight decay (on the matrices)
+    adam_betas: tuple = (0.9, 0.95)
+    adam_eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_global_norm: float = 1.0
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        object.__setattr__(self, "token_ids", tuple(self.token_ids))
+        object.__setattr__(self, "adam_betas", tuple(self.adam_betas))
+        if set(self.layer_types) - {"mamba", "attention"}:
+            raise ValueError(f"unknown layer types in {self.layer_types}")
+        if self.mamba_n_groups != 1:
+            raise ValueError("the scan takes one group of B and C (mamba_n_groups=1)")
+        if self.mamba_expand * self.hidden_size != self.mamba_n_heads * self.mamba_d_head:
+            raise ValueError("mamba_expand * hidden_size must be mamba_n_heads * mamba_d_head")
+        if self.hidden_size % self.num_attention_heads \
+                or self.num_attention_heads % self.num_key_value_heads:
+            raise ValueError("the heads must divide hidden_size, the key heads the query heads")
+        if len(self.token_ids) != 5 or max(self.token_ids) >= self.vocab_size:
+            raise ValueError(f"token_ids {self.token_ids}: five ids below {self.vocab_size}")
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def mamba_width(self) -> int:
+        return self.mamba_expand * self.hidden_size
+
+    @property
+    def conv_dim(self) -> int:
+        return self.mamba_width + 2 * self.mamba_n_groups * self.mamba_d_state
+
+    def create_model(self, sample_batch: tuple, seed, device, mesh=None) -> "GraniteHybrid":
+        if mesh is not None:
+            raise ValueError("the hybrid model trains on one device: no tensor-parallel rules "
+                             "cut its layers")
+        return GraniteHybrid(self, seed, device=device)
+
+
+def _normal(shape, std: float, g: torch.Generator) -> torch.Tensor:
+    return torch.randn(shape, generator=g, device=g.device) * std
+
+
+class Linear(nn.Module):
+    """``y = x W^T`` with a float32 ``weight`` ``(out, in)``, in the compute dtype."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, g: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(_normal((d_out, d_in), 0.02, g))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+
+
+class RMSNorm(nn.Module):
+    """``x / sqrt(mean(x^2) + eps) * weight``: statistics and weight in
+    float32, the result in the compute dtype."""
+
+    def __init__(self, d: int, eps: float, dtype: torch.dtype):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(d))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        return (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + self.eps)
+                * self.weight).to(self.dtype)
+
+
+class Mamba2Mixer(nn.Module):
+    """The Mamba-2 mixer (module docstring), on ``(n, T, hidden)``."""
+
+    def __init__(self, cfg: GraniteHybridConfig, g: torch.Generator):
+        super().__init__()
+        self.cfg, dt = cfg, cfg.compute_dtype
+        H, W = cfg.mamba_n_heads, cfg.mamba_width
+        self.in_proj = Linear(cfg.hidden_size, W + cfg.conv_dim + H, dt, g)
+        self.conv1d = nn.Module()
+        self.conv1d.weight = nn.Parameter(
+            _normal((cfg.conv_dim, 1, cfg.mamba_d_conv), 1 / math.sqrt(cfg.mamba_d_conv), g))
+        self.conv1d.bias = nn.Parameter(torch.zeros(cfg.conv_dim))
+        # Mamba-2's initialisation: dt log-uniform in [1e-3, 1e-1] (floor
+        # 1e-4) through softplus's inverse; A uniform in [1, 16]; D = 1
+        u = torch.rand(H, generator=g, device=g.device)
+        dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3)).clamp_min(1e-4)
+        self.dt_bias = nn.Parameter(dt0 + torch.log(-torch.expm1(-dt0)))
+        self.A_log = nn.Parameter(torch.log(1 + 15 * torch.rand(H, generator=g, device=g.device)))
+        self.D = nn.Parameter(torch.ones(H))
+        self.norm = RMSNorm(W, cfg.rms_norm_eps, dt)
+        self.out_proj = Linear(W, cfg.hidden_size, dt, g)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        cfg, dt_ = self.cfg, self.cfg.compute_dtype
+        n, T, _ = h.shape
+        H, P, N, W = cfg.mamba_n_heads, cfg.mamba_d_head, cfg.mamba_d_state, cfg.mamba_width
+        z, xbc, dt = self.in_proj(h).split([W, cfg.conv_dim, H], dim=-1)
+        k = cfg.mamba_d_conv
+        xbc = F.conv1d(xbc.transpose(1, 2), self.conv1d.weight.to(dt_),
+                       self.conv1d.bias.to(dt_), padding=k - 1, groups=cfg.conv_dim)[..., :T]
+        xbc = F.silu(xbc).transpose(1, 2)  # (n, T, conv_dim)
+        x = xbc[..., :W].reshape(n, T, H, P).contiguous()
+        B = xbc[..., W: W + N].contiguous()
+        C = xbc[..., W + N:].contiguous()
+        dt = F.softplus(dt.float() + self.dt_bias)
+        y = ssd_scan(x, dt, -torch.exp(self.A_log), B, C, self.D, cfg.mamba_chunk_size)
+        y = self.norm(y.reshape(n, T, W).float() * F.silu(z.float()))
+        return self.out_proj(y)
+
+
+class Attention(nn.Module):
+    """Causal grouped-query attention with no position encoding, on
+    ``(n, T, hidden)``."""
+
+    def __init__(self, cfg: GraniteHybridConfig, g: torch.Generator):
+        super().__init__()
+        self.cfg, dt = cfg, cfg.compute_dtype
+        d, hd = cfg.hidden_size, cfg.hidden_size // cfg.num_attention_heads
+        self.q_proj = Linear(d, cfg.num_attention_heads * hd, dt, g)
+        self.k_proj = Linear(d, cfg.num_key_value_heads * hd, dt, g)
+        self.v_proj = Linear(d, cfg.num_key_value_heads * hd, dt, g)
+        self.o_proj = Linear(cfg.num_attention_heads * hd, d, dt, g)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        n, T, d = h.shape
+        hd = d // cfg.num_attention_heads
+
+        def heads(t, k):
+            return t.view(n, T, k, hd).transpose(1, 2)
+
+        q = heads(self.q_proj(h), cfg.num_attention_heads)
+        k = heads(self.k_proj(h), cfg.num_key_value_heads)
+        v = heads(self.v_proj(h), cfg.num_key_value_heads)
+        flash = sdpa_kernel(SDPBackend.FLASH_ATTENTION) if h.is_cuda else contextlib.nullcontext()
+        with flash:
+            a = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               scale=cfg.attention_multiplier, enable_gqa=True)
+        return self.o_proj(a.transpose(1, 2).reshape(n, T, d))
+
+
+class SharedMLP(nn.Module):
+    """``output_linear(silu(a) * b)``, ``[a, b] = input_linear(x)``."""
+
+    def __init__(self, cfg: GraniteHybridConfig, g: torch.Generator):
+        super().__init__()
+        dt = cfg.compute_dtype
+        self.input_linear = Linear(cfg.hidden_size, 2 * cfg.intermediate_size, dt, g)
+        self.output_linear = Linear(cfg.intermediate_size, cfg.hidden_size, dt, g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.input_linear(x).chunk(2, dim=-1)
+        return self.output_linear(F.silu(a) * b)
+
+
+class Layer(nn.Module):
+    def __init__(self, kind: str, cfg: GraniteHybridConfig, g: torch.Generator):
+        super().__init__()
+        self.kind, self.r = kind, cfg.residual_multiplier
+        dt, eps = cfg.compute_dtype, cfg.rms_norm_eps
+        self.input_layernorm = RMSNorm(cfg.hidden_size, eps, dt)
+        if kind == "mamba":
+            self.mamba = Mamba2Mixer(cfg, g)
+        else:
+            self.self_attn = Attention(cfg, g)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps, dt)
+        self.shared_mlp = SharedMLP(cfg, g)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        x = self.input_layernorm(h)
+        if self.kind == "mamba":
+            with annotate("hh.granite.mamba"):
+                h = h + self.r * self.mamba(x)
+        else:
+            with annotate("hh.granite.attention"):
+                h = h + self.r * self.self_attn(x)
+        with annotate("hh.granite.mlp"):
+            return h + self.r * self.shared_mlp(self.post_attention_layernorm(h))
+
+
+class ChunkedHeadLoss(torch.autograd.Function):
+    """The mean cross-entropy of ``h W^T / scale`` against ``targets``, over
+    ``chunk`` rows at a time: ``h`` ``(n, d)`` in the compute dtype, the
+    float32 table ``W`` ``(V, d)``, int64 ``targets`` ``(n,)``.  Each chunk's
+    logits are a product in ``h``'s dtype taken to float32 (float64 for a
+    float64 ``h``) for the log-sum-exp; where a gradient is wanted the forward also takes the
+    chunk's gradients (the softmax less the target's one-hot), so no logits
+    are kept or recomputed: the backward scales the saved ``dh`` and ``dW``
+    by the loss's gradient."""
+
+    @staticmethod
+    def forward(ctx, h, weight, targets, scale: float, chunk: int):
+        n = h.shape[0]
+        w, wide = weight.to(h.dtype), torch.promote_types(h.dtype, torch.float32)
+        want = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        total = torch.zeros((), dtype=wide, device=h.device)
+        dh = torch.empty_like(h) if want else None
+        dW = torch.zeros_like(weight) if want else None
+        for a in range(0, n, chunk):
+            hc, tc = h[a: a + chunk], targets[a: a + chunk]
+            logits = (hc @ w.t()).to(wide).mul_(1.0 / scale)
+            lse = torch.logsumexp(logits, dim=-1)
+            total += (lse - logits.gather(1, tc[:, None])[:, 0]).sum()
+            if want:
+                p = logits.sub_(lse[:, None]).exp_()
+                p[torch.arange(p.shape[0], device=p.device), tc] -= 1.0
+                g = p.mul_(1.0 / (scale * n)).to(h.dtype)
+                dh[a: a + chunk] = g @ w
+                dW += (g.t() @ hc).to(dW.dtype)
+        if want:
+            ctx.save_for_backward(dh, dW)
+        return total / n
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        dh, dW = ctx.saved_tensors
+        return dh * grad.to(dh.dtype), dW * grad, None, None, None
+
+
+class GraniteHybrid(nn.Module):
+    """The model.  Parameters are drawn from ``seed`` (an int: on
+    ``device``, from a generator of that device; or a ``torch.Generator``:
+    on its device, then moved to ``device``), never from the global
+    generator: kernels and the embedding ``N(0, 0.02^2)``, the conv ``N(0, 1
+    / d_conv)``, Mamba-2's ``A``, ``dt`` and ``D`` as the paper's code sets
+    them, norms 1, biases 0.  The same int seed draws other values on a card
+    than on the CPU."""
+
+    def __init__(self, cfg: GraniteHybridConfig = GraniteHybridConfig(),
+                 seed: int | torch.Generator = 0, device: str | torch.device = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        g = seed if isinstance(seed, torch.Generator) \
+            else torch.Generator(device=dev).manual_seed(seed)
+        self.cfg = cfg
+        self.embed_tokens = nn.Embedding(
+            cfg.vocab_size, cfg.hidden_size,
+            _weight=_normal((cfg.vocab_size, cfg.hidden_size), 0.02, g))
+        self.layers = nn.ModuleList(Layer(kind, cfg, g) for kind in cfg.layer_types)
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.compute_dtype)
+        self.register_buffer("token_table", torch.tensor(cfg.token_ids, dtype=torch.int64),
+                             persistent=False)
+        self.to(dev)
+        if dev.type == "cuda" and "mamba" in cfg.layer_types:
+            load_ssd_scan()  # a first build falls in set-up
+
+    clip_global_norm = property(lambda self: self.cfg.clip_global_norm)
+
+    def tokens(self, hap1: torch.Tensor, hap2: torch.Tensor) -> torch.Tensor:
+        """``(2B, L)`` int64 token ids of both haplotypes' base codes."""
+        return self.token_table[torch.cat([hap1, hap2]).long()]
+
+    def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The last layer's output ``(n, L, hidden)`` over ``tokens``."""
+        cfg = self.cfg
+        with annotate("hh.granite.embed"):
+            h = self.embed_tokens(tokens).to(cfg.compute_dtype) * cfg.embedding_multiplier
+        for layer in self.layers:
+            h = layer(h)
+        return h
+
+    def forward(self, hap1: torch.Tensor, hap2: torch.Tensor) -> torch.Tensor:
+        """The mean next-token cross-entropy over both haplotypes of the
+        ``(B, L)`` windows, float32."""
+        tokens = self.tokens(hap1, hap2)
+        h = self.hidden(tokens)
+        with annotate("hh.granite.head_loss"):
+            h = self.norm(h)
+            n, L, d = h.shape
+            return ChunkedHeadLoss.apply(h[:, :-1].reshape(n * (L - 1), d),
+                                         self.embed_tokens.weight,
+                                         tokens[:, 1:].reshape(-1),
+                                         self.cfg.logits_scaling, self.cfg.loss_chunk)
+
+    def loss(self, hap1, hap2, n_variants=None, targets=None, generator=None):
+        """``(loss, {})``: the windows are their own targets."""
+        return self(hap1, hap2), {}
+
+    def make_optimizer(self, learning_rate: float) -> torch.optim.Optimizer:
+        """AdamW, the matrices and the embedding decayed, the vectors not."""
+        cfg = self.cfg
+        params = list(self.parameters())
+        groups = [{"params": [p for p in params if p.dim() >= 2]},
+                  {"params": [p for p in params if p.dim() < 2], "weight_decay": 0.0}]
+        return torch.optim.AdamW(groups, lr=learning_rate, betas=cfg.adam_betas,
+                                 eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
+
+    def dropout_generator(self, seed) -> None:
+        return None
+

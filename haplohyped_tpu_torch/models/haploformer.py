@@ -50,6 +50,8 @@ from haplohyped_tpu_torch.parallel.collectives import copy_to_group, reduce_over
 
 #: flax ``nn.LayerNorm``'s epsilon (torch's default is 1e-5)
 LN_EPS = 1e-6
+#: ``optax.adamw``'s defaults (torch's AdamW decays by 1e-2 by default)
+ADAMW = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
 #: standard deviation of a unit normal truncated to [-2, 2]: flax's
 #: ``truncated_normal`` initialisers divide by it to keep the variance
 _TRUNC_STD = 0.87962566103423978
@@ -72,6 +74,28 @@ class HaploFormerConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    def create_model(self, sample_batch: tuple, seed, device, mesh=None) -> "HaploFormer":
+        """The model for ``sample_batch``'s window length (``(hap1, hap2)``,
+        as flax's ``init`` takes its shapes from it); with ``mesh`` (on
+        ``device``'s kind), cut to this rank's ``model`` shards."""
+        from haplohyped_tpu_torch.parallel.mesh import shard_model
+
+        model = HaploFormer(self, sample_batch[0].shape[1], seed, device=device)
+        if mesh is not None:
+            if mesh.device_type != resolve_device(device).type:
+                raise ValueError(f"a {mesh.device_type} mesh for a model on {device}")
+            shard_model(model, mesh)
+        return model
+
+
+def token_targets(hap1: torch.Tensor, T: int, pool: int, num_channels: int) -> torch.Tensor:
+    """``(B, T)`` int64: for each token, the channel most frequent over its
+    ``pool`` positions of ``hap1[:, :T * pool]``; a tie goes to the lowest
+    channel (both libraries' argmax takes the first maximum)."""
+    oh = hap1 if hap1.ndim == 3 else windows_to_onehot(hap1, num_channels, torch.float32)
+    B, _, C = oh.shape
+    return oh[:, : T * pool].reshape(B, T, pool, C).sum(dim=2).argmax(dim=-1)
 
 
 def _lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:
@@ -317,6 +341,30 @@ class HaploFormer(nn.Module):
             "variant_count": count.float(),
             "base_logits": base_logits.float(),
         }
+
+    #: no clip: the JAX package's optax chain clips nothing
+    clip_global_norm = None
+
+    def loss(self, hap1, hap2, n_variants, targets=None, generator=None):
+        """``(loss, {"reg", "ce"})``, ``0.01 * reg + ce``, with ``reg`` the MSE
+        of the variant count against ``n_variants`` (free labels from the
+        sampler) and ``ce`` the cross-entropy of the token head against
+        :func:`token_targets` of hap1."""
+        out = self(hap1, hap2)
+        reg = ((out["variant_count"] - n_variants.float()) ** 2).mean()
+        logits = out["base_logits"]
+        cfg = self.cfg
+        targets = token_targets(hap1, logits.shape[1], cfg.pool, cfg.num_channels)
+        ce = F.cross_entropy(logits.flatten(0, 1), targets.flatten())
+        return reg * 0.01 + ce, {"reg": reg, "ce": ce}
+
+    def make_optimizer(self, learning_rate: float) -> torch.optim.Optimizer:
+        """``AdamW`` at optax's defaults over every parameter in one group
+        (optax applies no mask: biases, norms and ``pos_embed`` decay too)."""
+        return torch.optim.AdamW(self.parameters(), lr=learning_rate, **ADAMW)
+
+    def dropout_generator(self, seed) -> None:
+        return None
 
 
 def train_flops_per_step(cfg: HaploFormerConfig, B: int, L: int) -> int:

@@ -1,13 +1,17 @@
-"""HaploFormer's and Enformer's loss, train step and fused
-sample-into-train step, checkpoints, and the training loop over the sampler:
-the JAX package's ``models/train.py`` in PyTorch, with Enformer added.
+"""The loss, train step and fused sample-into-train step, checkpoints, and
+the training loop over the sampler: the JAX package's ``models/train.py`` in
+PyTorch, for every model of the port.
 
-A train state's model is the one its config names: ``HaploFormerConfig``
-builds HaploFormer with AdamW at optax's defaults, trained on the sampler's
-free labels; ``EnformerConfig`` builds Enformer with Adam (no weight decay)
-and the global gradient norm clipped where the config says, trained on
-targets the fused step's ``targets`` callback gives, its dropout drawn from
-a generator the state holds.
+A train state's model is the one its config names (``cfg.create_model``):
+HaploFormer, Enformer or the Granite hybrid.  Each model owns its training:
+``model.loss(hap1, hap2, n_variants, targets, generator)``,
+``model.make_optimizer(learning_rate)``, ``model.clip_global_norm`` (None:
+no clip) and ``model.dropout_generator(seed)`` (None: no dropout).
+HaploFormer trains with AdamW at optax's defaults on the sampler's free
+labels; Enformer with Adam, the global gradient norm clipped, on targets the
+fused step's ``targets`` callback gives, its dropout drawn from a generator
+the state holds; the Granite hybrid with AdamW and a clip, on the windows'
+own next bases.
 
 bf16 compute, float32 parameters and optimiser state.  A step updates the
 module's parameters and the optimiser's state in place and returns its
@@ -33,27 +37,24 @@ from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
+from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
-from haplohyped_tpu_torch.core.config import resolve_device
 from haplohyped_tpu_torch.core.profiling import annotate
-from haplohyped_tpu_torch.models.enformer import Enformer, EnformerConfig, poisson_loss
-from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
-from haplohyped_tpu_torch.ops.haplotype_window import windows_to_onehot
+from haplohyped_tpu_torch.models.haploformer import (  # noqa: F401 (token_targets re-exported)
+    HaploFormerConfig,
+    token_targets,
+)
 from haplohyped_tpu_torch.parallel import distributed
 from haplohyped_tpu_torch.parallel.mesh import (
     axis_group,
     axis_size,
     param_shardings,
     shard_batch_spec,
-    shard_model,
 )
 
 logger = logging.getLogger(__name__)
 
-#: ``optax.adamw``'s defaults (torch's AdamW decays by 1e-2 by default)
-ADAMW = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
 #: the file a checkpoint directory holds
 CHECKPOINT_FILE = "train_state.pt"
 
@@ -64,89 +65,41 @@ class TrainState(NamedTuple):
     draws from (None: no dropout).  A step returns a new tuple around the
     same (updated) module, optimiser and generator."""
 
-    model: HaploFormer | Enformer
+    model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int
     mesh: DeviceMesh | None = None
     generator: torch.Generator | None = None
 
 
-def token_targets(hap1: torch.Tensor, T: int, pool: int, num_channels: int) -> torch.Tensor:
-    """``(B, T)`` int64: for each token, the channel most frequent over its
-    ``pool`` positions of ``hap1[:, :T * pool]``; a tie goes to the lowest
-    channel (both libraries' argmax takes the first maximum)."""
-    oh = hap1 if hap1.ndim == 3 else windows_to_onehot(hap1, num_channels, torch.float32)
-    B, _, C = oh.shape
-    return oh[:, : T * pool].reshape(B, T, pool, C).sum(dim=2).argmax(dim=-1)
-
-
-def loss_fn(model: HaploFormer | Enformer, hap1, hap2, n_variants, targets=None,
+def loss_fn(model: nn.Module, hap1, hap2, n_variants, targets=None,
             generator: torch.Generator | None = None):
-    """HaploFormer: ``(loss, {"reg", "ce"})``, ``0.01 * reg + ce``, with
-    ``reg`` the MSE of the variant count against ``n_variants`` (free labels
-    from the sampler) and ``ce`` the cross-entropy of the token head against
-    :func:`token_targets` of hap1.  Enformer: ``(loss, {})``, the Poisson
-    loss of the pair's rates against ``targets`` ``(B, target_length,
-    tracks)``, its dropout drawn from ``generator``."""
-    if isinstance(model, Enformer):
-        if targets is None:
-            raise ValueError("Enformer trains on targets: give make_fused_train_step "
-                             "a targets callback, or the train step targets=")
-        return poisson_loss(model(hap1, hap2, generator)["rates"], targets), {}
-    out = model(hap1, hap2)
-    reg = ((out["variant_count"] - n_variants.float()) ** 2).mean()
-    logits = out["base_logits"]
-    cfg = model.cfg
-    targets = token_targets(hap1, logits.shape[1], cfg.pool, cfg.num_channels)
-    ce = F.cross_entropy(logits.flatten(0, 1), targets.flatten())
-    return reg * 0.01 + ce, {"reg": reg, "ce": ce}
+    """``(loss, aux)``: the model's own loss on the batch (``model.loss``).
+    HaploFormer's aux holds ``reg`` and ``ce``; Enformer trains on
+    ``targets`` ``(B, target_length, tracks)``, its dropout drawn from
+    ``generator``; the Granite hybrid on the windows' next bases."""
+    return model.loss(hap1, hap2, n_variants, targets, generator)
 
 
 def create_train_state(
-    cfg: HaploFormerConfig | EnformerConfig,
+    cfg,
     sample_batch: tuple,
     learning_rate: float = 3e-4,
     seed: int | torch.Generator = 0,
     device: str | torch.device = "cuda",
     mesh: DeviceMesh | None = None,
 ) -> TrainState:
-    """The model ``cfg`` names, initialised from ``seed``.  HaploFormer is
-    built for ``sample_batch``'s window length (``(hap1, hap2)``, as flax's
-    ``init`` takes its shapes from it), with ``AdamW`` at optax's defaults
-    over every parameter in one group (optax applies no mask: biases, norms
-    and ``pos_embed`` decay too).  With ``mesh`` (on ``device``'s kind),
-    every rank builds the same model and keeps its ``model`` shards of it.
-    Enformer takes windows of ``cfg.sequence_length``, trains with ``Adam``
-    (no weight decay), and draws its dropout from a generator on ``device``
-    seeded from ``seed``; it takes no mesh."""
-    if isinstance(cfg, EnformerConfig):
-        return _create_enformer_state(cfg, sample_batch, learning_rate, seed, device, mesh)
+    """The model ``cfg`` names (``cfg.create_model``), initialised from
+    ``seed`` on ``device``, with the optimiser it trains with and its dropout
+    generator.  HaploFormer is built for ``sample_batch``'s window length and
+    takes a ``mesh`` (on ``device``'s kind): every rank builds the same model
+    and keeps its ``model`` shards of it.  Enformer takes windows of
+    ``cfg.sequence_length``; neither it nor the Granite hybrid takes a mesh."""
     with annotate("hh.train.create_state"):
-        model = HaploFormer(cfg, sample_batch[0].shape[1], seed, device=device)
-        if mesh is not None:
-            if mesh.device_type != resolve_device(device).type:
-                raise ValueError(f"a {mesh.device_type} mesh for a model on {device}")
-            shard_model(model, mesh)
-        optimizer = torch.optim.AdamW(model.parameters(), lr=learning_rate, **ADAMW)
-    return TrainState(model, optimizer, 0, mesh)
-
-
-def _create_enformer_state(cfg: EnformerConfig, sample_batch: tuple, learning_rate: float,
-                           seed: int | torch.Generator, device, mesh) -> TrainState:
-    if mesh is not None:
-        raise ValueError("Enformer trains on one device: its batch norm takes the local "
-                         "batch's statistics, and no tensor-parallel rules cut its layers")
-    if sample_batch[0].shape[1] != cfg.sequence_length:
-        raise ValueError(f"windows of {sample_batch[0].shape[1]} bp for an Enformer of "
-                         f"sequence_length={cfg.sequence_length}")
-    dev = resolve_device(device)
-    with annotate("hh.train.create_state"):
-        model = Enformer(cfg, seed, device=dev)
-        optimizer = torch.optim.Adam(model.parameters(), lr=learning_rate, betas=ADAMW["betas"],
-                                     eps=ADAMW["eps"], weight_decay=0.0)
-        s = seed.initial_seed() if isinstance(seed, torch.Generator) else seed
-        generator = torch.Generator(device=dev).manual_seed(s)
-    return TrainState(model, optimizer, 0, None, generator)
+        model = cfg.create_model(sample_batch, seed, device, mesh)
+        optimizer = model.make_optimizer(learning_rate)
+        generator = model.dropout_generator(seed)
+    return TrainState(model, optimizer, 0, mesh, generator)
 
 
 def _average_over_data(params: list, metrics: dict, mesh: DeviceMesh) -> dict:
@@ -181,7 +134,7 @@ def _train_step(state: TrainState, hap1, hap2, n_variants, mesh: DeviceMesh | No
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
         if mesh is not None:
             metrics = _average_over_data(list(state.model.parameters()), metrics, mesh)
-        clip = getattr(state.model.cfg, "clip_global_norm", None)
+        clip = state.model.clip_global_norm
         if clip is not None:
             with annotate("hh.train.clip"):
                 torch.nn.utils.clip_grad_norm_(state.model.parameters(), clip, foreach=True)

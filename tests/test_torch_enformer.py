@@ -45,7 +45,7 @@ from haplohyped_tpu_torch.models import train
 from portbench import weights
 from portbench.checks import TINY_GRAD
 from portbench.reference import enformer as ref
-from tests.test_torch_train import cpu_sampler
+from tests.torch_cpu_sampler import cpu_sampler
 
 SMALL = dict(channels=64, num_transformer_layers=2, num_heads=2, key_size=8, value_size=32,
              num_relative_position_features=12, divisible_by=16, sequence_length=8192,

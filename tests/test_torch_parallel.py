@@ -272,7 +272,7 @@ def test_sharded_decode_and_convert_at_world_size_1(world1, tmp_path):
 def test_fused_step_and_train_on_sampler_at_world_size_1(world1):
     """The fused step and ``train_on_sampler`` with a mesh of one rank give
     the unsharded ones' metrics, losses and parameters exactly."""
-    from tests.test_torch_train import SMALL as TRAIN_SMALL, cpu_sampler
+    from tests.torch_cpu_sampler import SMALL as TRAIN_SMALL, cpu_sampler
 
     sampler = cpu_sampler(seed=3)
     first = sampler.sample()

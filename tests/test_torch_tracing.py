@@ -35,7 +35,7 @@ FUSED_TREE = [
 @pytest.fixture
 def fused():
     """A CPU sampler, a small model's train state and its fused step."""
-    from tests.test_torch_train import SMALL, cpu_sampler
+    from tests.torch_cpu_sampler import SMALL, cpu_sampler
 
     sampler = cpu_sampler(seed=3)
     first = sampler.sample()
@@ -141,7 +141,7 @@ def test_spans_record_nothing_while_the_stream_captures(fused, monkeypatch):
 def test_set_up_spans(fused):
     """The sampler's init with its index as a child, the model's state, the
     chain's call (eager on the CPU: no capture span)."""
-    from tests.test_torch_train import SMALL
+    from tests.torch_cpu_sampler import SMALL
 
     sampler = fused[0]
     config = dataclasses.replace(sampler.config, window_kernel="kernel")  # index in init
@@ -210,7 +210,7 @@ def test_the_data_parallel_exchange_is_a_span_with_its_bytes():
     """A step on a one-rank gloo mesh: one ``hh.parallel.allreduce`` a step,
     inside ``hh.train.step`` between the backward and the optimiser, its
     ``bytes`` the flat buffer of every gradient and the three metrics."""
-    from tests.test_torch_train import SMALL, cpu_sampler
+    from tests.torch_cpu_sampler import SMALL, cpu_sampler
 
     assert not dist.is_initialized()
     mesh = make_mesh(MeshConfig(1, 1), device="cpu")
@@ -257,7 +257,7 @@ def test_an_enformer_step_records_its_spans_where_they_belong():
     """The model's four stages inside the forward, the clip between the
     backward and the optimiser, the targets after the sampler's batch."""
     from tests.test_torch_enformer import B, CFG, L
-    from tests.test_torch_train import cpu_sampler
+    from tests.torch_cpu_sampler import cpu_sampler
 
     sampler = cpu_sampler(L=L, batch_size=B, seed=6)
     x = torch.zeros((B, L), dtype=torch.int8)
