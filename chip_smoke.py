@@ -214,12 +214,13 @@ cite them (there is no phase 6; any failure exits non-zero; nothing is caught):
    library yardstick.
 
 21. The chunked state-space scan's kernels (``ops/ssd_scan.py``).  First
-   the main path: one bf16 forward and backward of
+   the main path, one step that phase 22 reads too
+   (``tools/granite_step_check.py``): one bf16 forward and backward of
    ``GraniteHybrid(GraniteHybridConfig())`` on one window pair of 8,192 bp
-   (the benchmark cell's step), the counters reset to 0 just before it: one
-   forward and one backward call each of the 9 Mamba-2 mixers, 72 launches
-   (the kernels line's count), a finite loss, and no tensor as large as the
-   step's logits.  Then, forward and backward, against the plain version in
+   (the benchmark cell's step), the scan's and the norms' counters reset to
+   0 just before it: one forward and one backward scan call each of the 9
+   Mamba-2 mixers, 72 launches (the kernels line's count), a finite loss,
+   and no tensor as large as the step's logits.  Then, forward and backward, against the plain version in
    float32 on the same bf16 inputs (``tools/ssd_scan_check.py``): at the
    cell's ``(2, 8192)`` with 64 heads of 64 and a state of 128, and at ``(3,
    768)`` with 5 heads of 24 and a state of 40; the output and every
@@ -228,12 +229,27 @@ cite them (there is no phase 6; any failure exits non-zero; nothing is caught):
    shape, the forward's and the backward's device ms (CUDA events, 10 calls;
    the plain version 1), the kernels with their ``torch.bmm`` products; the
    bound is the benchmark's (``ssd_fwd_roofline.granite``).
+22. The Granite hybrid's norms (``ops/rms_norm.py``), plain and gated.
+   First phase 21's main-path step (run here where the phase runs alone):
+   one forward and one backward call each of the 30 norms (the 9 mixers'
+   gated), 90 launches (the kernels line's count), and no ``pow`` or
+   ``rsqrt`` op dispatched.  Then the
+   wrapper against the float64 plain version (``tools/rms_norm_check.py``)
+   at the cell's two norms, ``(16384, 2048)`` plain and ``(16384, 4096)``
+   with the gate a strided view of a ``(16384, 8512)`` tensor (``in_proj``'s
+   output), each in bf16 and float32: a bf16 output equal to the rounded
+   plain version or one bf16 step apart, at most 1% of elements apart, a
+   float32 one within 1e-5 of its norm; each gradient within its tolerance
+   of the plain version's norm; two runs bit-equal.  At both shapes in bf16,
+   the forward's and the backward's device ms (CUDA events, 10 calls) beside
+   their byte bounds (each input read and each output written once), the
+   plain version's, and ``F.rms_norm`` in bf16 as the library yardstick.
 
 ``--phase NAME`` runs one phase alone, with the set-up it needs, and prints
 its JSON line: ``single_pass`` (phases 7, 8 and 14), ``tokenizer`` (7, 8, 14
 and 16), ``reference`` (15), ``parallel`` (the converter files of phases 7
-and 14, then 17), ``long_windows`` (2 and 19), ``batchnorm_gelu`` (20) or
-``ssd_scan`` (21).  ``--parallel DIR`` is
+and 14, then 17), ``long_windows`` (2 and 19), ``batchnorm_gelu`` (20),
+``ssd_scan`` (21) or ``rms_norm`` (22).  ``--parallel DIR`` is
 phase 17's child process.
 
 The lines before the last are a JSON object ``{"train": {...}}`` of phase
@@ -242,7 +258,7 @@ The lines before the last are a JSON object ``{"train": {...}}`` of phase
 phase 16's, one ``{"parallel": {...}}`` of phase 17's, one ``{"chain":
 {...}}`` of phase 18's, one ``{"long_windows": {...}}`` of phase 19's, one
 ``{"batchnorm_gelu": {...}}`` of phase 20's, one ``{"ssd_scan": {...}}`` of
-phase 21's, one with one entry per kernel (its launches, and its times where phases 10 and
+phase 21's, one ``{"rms_norm": {...}}`` of phase 22's, one with one entry per kernel (its launches, and its times where phases 10 and
 12 take them), then the comparisons made; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -291,7 +307,6 @@ from haplohyped_tpu_torch.hostio.variants import VariantTable
 from haplohyped_tpu_torch.hostio.vcf import VCFSource
 from haplohyped_tpu_torch.hostio.writer import BcfWriter, VcfHeader, VcfWriter
 from haplohyped_tpu_torch.models.enformer import ConvBlock, Enformer, EnformerConfig
-from haplohyped_tpu_torch.models.granite_hybrid import GraniteHybrid, GraniteHybridConfig
 from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
 from haplohyped_tpu_torch.models.train import (
     create_train_state,
@@ -304,6 +319,7 @@ from haplohyped_tpu_torch.models.train import (
 )
 from haplohyped_tpu_torch.ops import _build
 from haplohyped_tpu_torch.ops.batchnorm_gelu import batchnorm_gelu, batchnorm_gelu_plain, gelu
+from haplohyped_tpu_torch.ops.rms_norm import rms_norm, rms_norm_plain
 from haplohyped_tpu_torch.ops.ssd_scan import ssd_scan, ssd_scan_plain
 from haplohyped_tpu_torch.ops.decode_kernel import (
     decode_frames12_kernel,
@@ -384,6 +400,20 @@ from haplohyped_tpu_torch.pipeline.vcf_to_h5 import (
 )
 from haplohyped_tpu_torch.tools import window_kernel_lab as lab
 from haplohyped_tpu_torch.tools.batchnorm_gelu_check import BN_EPS, BN_MOMENTUM, bn_compare
+from haplohyped_tpu_torch.tools.granite_step_check import (
+    GRANITE_L,
+    check_granite_step,
+    granite_step,
+)
+from haplohyped_tpu_torch.tools.rms_norm_check import (
+    EPS as RMS_EPS,
+    HIDDEN,
+    IN_PROJ,
+    MIXER,
+    ROWS,
+    rms_compare,
+    rms_inputs,
+)
 from haplohyped_tpu_torch.tools.ssd_scan_check import CELL_SHAPE, ssd_compare, ssd_inputs
 from haplohyped_tpu_torch.tools.deployment import N_REGIONS, make_cohort, make_regions, make_state
 from haplohyped_tpu_torch.utils.bitpack import pack_2bit
@@ -2817,61 +2847,31 @@ def batchnorm_gelu_phase(card: str, seed: int) -> dict:
             "eval": eval_gaps, "shape": list(shapes[0]), "times": times}
 
 
-#: bases a sequence in the Granite hybrid cell's step (one window pair)
-GRANITE_L = 8192
-
-
-def ssd_step(seed: int) -> dict:
-    """The main path: one bf16 forward and backward of
+def granite_main_step(seed: int) -> dict:
+    """The main path of phases 21 and 22: one bf16 forward and backward of
     ``GraniteHybrid(GraniteHybridConfig())`` on the benchmark cell's one
-    window pair of ``GRANITE_L`` bases, the counters reset to 0 just before
-    it.  Each Mamba-2 mixer calls the scan once forward and once backward (3
-    + 5 launches); no op's output is as large as the step's logits."""
-    cfg = GraniteHybridConfig()
-    model = GraniteHybrid(cfg, seed, device="cuda").train()
-    mixers = cfg.layer_types.count("mamba")
-    logits = 2 * (GRANITE_L - 1) * cfg.vocab_size
-    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
-    h1, h2 = (torch.randint(0, 5, (1, GRANITE_L), generator=gen,
-                            device="cuda").to(torch.int8) for _ in range(2))
-    largest = [0]
-
-    class Sizes(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            for t in (out if isinstance(out, (tuple, list)) else (out,)):
-                if isinstance(t, torch.Tensor):
-                    largest[0] = max(largest[0], t.numel())
-            return out
-
-    ssd_scan.launches = ssd_scan.forward_calls = ssd_scan.backward_calls = 0
+    window pair of ``GRANITE_L`` bases, the scan's and the norms' counters
+    reset to 0 just before it (``tools/granite_step_check.py``), and no op's
+    output as large as the step's logits.  Returns the reading without its
+    dispatch counts, but for ``pow`` and ``rsqrt``."""
     t0 = time.perf_counter()
-    with Sizes():
-        loss = model.loss(h1, h2)[0]
-        loss.backward()
-    torch.cuda.synchronize()
-    out = {"mixers": mixers, "launches": ssd_scan.launches,
-           "forward_calls": ssd_scan.forward_calls, "backward_calls": ssd_scan.backward_calls,
-           "loss": loss.item(), "largest_numel": largest[0], "logits_numel": logits}
-    log(f"ssd_scan: a step of GraniteHybrid(GraniteHybridConfig()) on 1 window pair of "
-        f"{GRANITE_L} bp in {time.perf_counter() - t0:.1f} s: {out}")
-    check(out["forward_calls"] == out["backward_calls"] == mixers,
-          f"{out['forward_calls']} forward and {out['backward_calls']} backward calls for "
-          f"{mixers} Mamba-2 mixers")
-    check(out["launches"] == 8 * mixers, f"{out['launches']} launches for {mixers} mixers")
-    check(math.isfinite(out["loss"]), f"loss {out['loss']}")
-    check(out["largest_numel"] < logits, f"a tensor of {out['largest_numel']} elements, the "
-          f"step's logits {logits}")
-    del model, loss
-    torch.cuda.empty_cache()
-    return out
+    step = granite_step(seed)
+    check_granite_step(step)
+    check(step["largest_numel"] < step["logits_numel"], f"a tensor of "
+          f"{step['largest_numel']} elements, the step's logits {step['logits_numel']}")
+    ops = step.pop("ops")
+    step.update(pow_ops=ops.get("pow", 0), rsqrt_ops=ops.get("rsqrt", 0))
+    log(f"a step of GraniteHybrid(GraniteHybridConfig()) on 1 window pair of {GRANITE_L} bp "
+        f"in {time.perf_counter() - t0:.1f} s: {step}")
+    return step
 
 
-def ssd_scan_phase(card: str, seed: int) -> dict:
-    """Phase 21.  Returns the main path's step, the comparisons' gaps, their
-    launches and the times at the cell's shape."""
+def ssd_scan_phase(card: str, seed: int, step: dict | None = None) -> dict:
+    """Phase 21.  Returns the main path's step (``step``, else one run
+    here), the comparisons' gaps, their launches and the times at the cell's
+    shape."""
     dev = torch.device("cuda")
-    step = ssd_step(seed)
+    step = step or granite_main_step(seed)
     gen = torch.Generator(device=dev).manual_seed(seed + 21)
     ssd_scan.launches = ssd_scan.forward_calls = ssd_scan.backward_calls = 0
     t0 = time.perf_counter()
@@ -2912,6 +2912,77 @@ def ssd_scan_phase(card: str, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 22: the norms' kernels
+
+#: (rows, width, gated, the width of the tensor the gate is a view of) of
+#: phase 22's comparisons and times: the Granite cell's plain and gated norms
+RMS_CASES = ((ROWS, HIDDEN, False, None), (ROWS, MIXER, True, IN_PROJ))
+
+
+def rms_times(inp: dict) -> dict:
+    """Device ms of a forward and of a backward (CUDA events, 10 calls
+    each): the kernels, the plain version, and ``F.rms_norm`` in bf16 (after
+    the gate's ``silu`` and product in bf16 where there is a gate) as the
+    library yardstick, beside the byte bound: each input read once and each
+    output written once (2 and 3 passes of the element size plain, 3 and 5
+    gated)."""
+    def library(x, weight, eps, gate=None):
+        u = x if gate is None else x * torch.nn.functional.silu(gate)
+        return torch.nn.functional.rms_norm(u, (x.shape[-1],), weight.to(x.dtype), eps)
+
+    gated = "gate" in inp
+    out = {}
+    for name, fn in (("kernel", rms_norm), ("plain", rms_norm_plain), ("library", library)):
+        x, weight = (inp[k].detach().requires_grad_() for k in ("x", "weight"))
+        gate = inp["gate"].detach().requires_grad_() if gated else None
+        leaves = (x, weight) if gate is None else (x, weight, gate)
+        args = (x, weight, RMS_EPS, gate)
+        fn(*args)  # warm-up
+        fwd = device_ms(fn, [args] * 10)[0]
+        y = fn(*args)
+        bwd = device_ms(lambda: torch.autograd.grad(y, leaves, inp["dout"], retain_graph=True),
+                        [()] * 10)[0]
+        out[name] = {"forward_ms": fwd, "backward_ms": bwd}
+        del y
+        torch.cuda.empty_cache()
+    n = inp["x"].numel() * inp["x"].element_size()
+    out["bound"] = {"forward_ms": (3 if gated else 2) * n / HBM_BYTES_PER_S * 1e3,
+                    "backward_ms": (5 if gated else 3) * n / HBM_BYTES_PER_S * 1e3}
+    out["bound_share"] = {k: out["bound"][k] / out["kernel"][k] for k in out["bound"]}
+    return out
+
+
+def rms_norm_phase(card: str, seed: int, step: dict | None = None) -> dict:
+    """Phase 22.  Returns the main path's step (``step``, else one run
+    here), the comparisons' worst gaps, their launches and the times at the
+    cell's two shapes."""
+    step = step or granite_main_step(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 22)
+    rms_norm.launches = rms_norm.forward_calls = rms_norm.backward_calls = 0
+    t0 = time.perf_counter()
+    gaps = {}
+    for rows, width, gated, gate_from in RMS_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            what = f"({rows}, {width}) {'gated' if gated else 'plain'} {dtype}"
+            gaps[what] = rms_compare(rms_inputs(rows, width, gated, dtype, gen, gate_from), what)
+            torch.cuda.empty_cache()
+    # a comparison runs the kernels twice: 2 x (1 + 2) launches
+    launches = rms_norm.launches
+    check(rms_norm.forward_calls == rms_norm.backward_calls == 2 * len(gaps),
+          f"{rms_norm.forward_calls} forward and {rms_norm.backward_calls} backward calls")
+    check(launches == 6 * len(gaps), f"{launches} rms_norm launches")
+    log(f"rms_norm: {len(gaps)} comparisons in {time.perf_counter() - t0:.1f} s, {launches} "
+        f"launches; gaps {gaps}")
+    times = {}
+    for rows, width, gated, gate_from in RMS_CASES:
+        what = f"({rows}, {width}) {'gated' if gated else 'plain'}"
+        times[what] = rms_times(rms_inputs(rows, width, gated, torch.bfloat16, gen, gate_from))
+        log(f"rms_norm at {what} bf16 ({card}): {times[what]}")
+    return {"step": step, "comparisons": len(gaps), "gaps": gaps, "launches": launches,
+            "times": times}
+
+
+# ---------------------------------------------------------------------------
 
 #: the kernels line's times of the window and draw kernels, which the
 #: benchmark measures (``portbench/run.py``: ``link_roofline.chain``,
@@ -2919,7 +2990,7 @@ def ssd_scan_phase(card: str, seed: int) -> dict:
 UNTIMED = {"ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None}
 #: the phases ``--phase`` runs alone
 PHASES = ("single_pass", "tokenizer", "reference", "parallel", "long_windows", "batchnorm_gelu",
-          "ssd_scan")
+          "ssd_scan", "rms_norm")
 
 
 def run_phase(name: str, seed: int) -> dict:
@@ -2930,6 +3001,8 @@ def run_phase(name: str, seed: int) -> dict:
         return {"batchnorm_gelu": batchnorm_gelu_phase(card, seed)}
     if name == "ssd_scan":
         return {"ssd_scan": ssd_scan_phase(card, seed)}
+    if name == "rms_norm":
+        return {"rms_norm": rms_norm_phase(card, seed)}
     if name == "long_windows":
         genome, cohort, regions = make_state(seed, dev)
         sampler = DeviceHaplotypeSampler(genome, cohort, regions,
@@ -3168,8 +3241,14 @@ def main() -> int:
 
     # -- 21. the chunked scan's kernels ------------------------------------
     torch.cuda.empty_cache()
-    ssd = ssd_scan_phase(card, args.seed)
+    granite = granite_main_step(args.seed)  # the main path of phases 21 and 22
+    ssd = ssd_scan_phase(card, args.seed, granite)
     log(json.dumps({"ssd_scan": ssd}))
+
+    # -- 22. the norms' kernels --------------------------------------------
+    torch.cuda.empty_cache()
+    rms = rms_norm_phase(card, args.seed, granite)
+    log(json.dumps({"rms_norm": rms}))
 
     kernels = [{
         "name": "window_kernel",
@@ -3248,7 +3327,7 @@ def main() -> int:
         "route": "cuda",
         "source": "haplohyped_tpu_torch/csrc/ssd_scan.cu",
         "replaces": None,  # no Pallas kernel: the JAX package has no state-space model
-        "launches": ssd["step"]["launches"],  # one Granite step; the comparisons' own apart
+        "launches": ssd["step"]["ssd_scan"]["launches"],  # one Granite step; the comparisons' own apart
         "max_abs_err": None,  # held to the plain version by shares of its norm, phase 21
         "ms": ssd_ms["kernel"],
         "plain_ms": ssd_ms["plain"],
@@ -3256,11 +3335,26 @@ def main() -> int:
         "bound_by": None,
         "library_ms": None,
     })
+    rms_ms = rms["times"]
+    kernels.append({
+        "name": "rms_norm",
+        "route": "cuda",
+        "source": "haplohyped_tpu_torch/csrc/rms_norm.cu",
+        "replaces": None,  # no Pallas kernel: the Granite hybrid's RMSNorm and gate ops
+        "launches": rms["step"]["rms_norm"]["launches"],  # one Granite step; the comparisons' own apart
+        "max_abs_err": None,  # held to the plain version by bf16 steps and norms, phase 22
+        "ms": {k: v["kernel"] for k, v in rms_ms.items()},
+        "plain_ms": {k: v["plain"] for k, v in rms_ms.items()},
+        "bound_ms": {k: v["bound"] for k, v in rms_ms.items()},
+        "bound_by": "bytes",
+        "library_ms": {k: v["library"] for k, v in rms_ms.items()},
+    })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"comparisons": {"main": cmp.count, "draw": draw_cmp.count,
                                     "lab": lab_cmp.count, "long": long_cmp.count,
                                     "decode": dec.count, "batchnorm_gelu": bn["comparisons"],
-                                    "ssd_scan": ssd["comparisons"]}}))
+                                    "ssd_scan": ssd["comparisons"],
+                                    "rms_norm": rms["comparisons"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -37,7 +37,9 @@ attention at 5, 15, 25 and 35).
 
 Cast rules (the port's, as HaploFormer's): float32 parameters; every matrix
 product, the conv and the residual stream in ``compute_dtype``; the norms'
-statistics and affine in float32, rounded once; ``A_log``, ``dt_bias``,
+statistics and affine, and the mixer's gate before its norm, in float32,
+rounded once (``ops/rms_norm.py``: on a card one kernel pass each way, which
+keeps no float32 activation for the backward); ``A_log``, ``dt_bias``,
 ``D``, ``dt``, the scan's state and the loss's log-sum-exp in float32.
 
 The model owns its training: :meth:`GraniteHybrid.loss`,
@@ -61,6 +63,8 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from haplohyped_tpu_torch.core.config import resolve_device
 from haplohyped_tpu_torch.core.profiling import annotate
+from haplohyped_tpu_torch.ops.rms_norm import load as load_rms_norm
+from haplohyped_tpu_torch.ops.rms_norm import rms_norm
 from haplohyped_tpu_torch.ops.ssd_scan import load as load_ssd_scan
 from haplohyped_tpu_torch.ops.ssd_scan import ssd_scan
 
@@ -151,18 +155,17 @@ class Linear(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    """``x / sqrt(mean(x^2) + eps) * weight``: statistics and weight in
-    float32, the result in the compute dtype."""
+    """``u / sqrt(mean(u^2) + eps) * weight``, ``u = x * silu(gate)`` where
+    a gate is given and ``x`` where not (``ops/rms_norm.py``): statistics
+    and weight in float32, the result in ``x``'s dtype."""
 
-    def __init__(self, d: int, eps: float, dtype: torch.dtype):
+    def __init__(self, d: int, eps: float):
         super().__init__()
-        self.eps, self.dtype = eps, dtype
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(d))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        return (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + self.eps)
-                * self.weight).to(self.dtype)
+    def forward(self, x: torch.Tensor, gate: torch.Tensor | None = None) -> torch.Tensor:
+        return rms_norm(x, self.weight, self.eps, gate)
 
 
 class Mamba2Mixer(nn.Module):
@@ -184,7 +187,7 @@ class Mamba2Mixer(nn.Module):
         self.dt_bias = nn.Parameter(dt0 + torch.log(-torch.expm1(-dt0)))
         self.A_log = nn.Parameter(torch.log(1 + 15 * torch.rand(H, generator=g, device=g.device)))
         self.D = nn.Parameter(torch.ones(H))
-        self.norm = RMSNorm(W, cfg.rms_norm_eps, dt)
+        self.norm = RMSNorm(W, cfg.rms_norm_eps)
         self.out_proj = Linear(W, cfg.hidden_size, dt, g)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
@@ -201,8 +204,10 @@ class Mamba2Mixer(nn.Module):
         C = xbc[..., W + N:].contiguous()
         dt = F.softplus(dt.float() + self.dt_bias)
         y = ssd_scan(x, dt, -torch.exp(self.A_log), B, C, self.D, cfg.mamba_chunk_size)
-        y = self.norm(y.reshape(n, T, W).float() * F.silu(z.float()))
-        return self.out_proj(y)
+        # the norm takes rows one stride apart: z's are read in place from
+        # in_proj's output; y's are copied where the scan cut its padding off
+        y = self.norm(y.reshape(n * T, W), gate=z.reshape(n * T, W))
+        return self.out_proj(y.view(n, T, W))
 
 
 class Attention(nn.Module):
@@ -254,13 +259,13 @@ class Layer(nn.Module):
     def __init__(self, kind: str, cfg: GraniteHybridConfig, g: torch.Generator):
         super().__init__()
         self.kind, self.r = kind, cfg.residual_multiplier
-        dt, eps = cfg.compute_dtype, cfg.rms_norm_eps
-        self.input_layernorm = RMSNorm(cfg.hidden_size, eps, dt)
+        eps = cfg.rms_norm_eps
+        self.input_layernorm = RMSNorm(cfg.hidden_size, eps)
         if kind == "mamba":
             self.mamba = Mamba2Mixer(cfg, g)
         else:
             self.self_attn = Attention(cfg, g)
-        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps, dt)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps)
         self.shared_mlp = SharedMLP(cfg, g)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
@@ -335,12 +340,14 @@ class GraniteHybrid(nn.Module):
             cfg.vocab_size, cfg.hidden_size,
             _weight=_normal((cfg.vocab_size, cfg.hidden_size), 0.02, g))
         self.layers = nn.ModuleList(Layer(kind, cfg, g) for kind in cfg.layer_types)
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.compute_dtype)
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.register_buffer("token_table", torch.tensor(cfg.token_ids, dtype=torch.int64),
                              persistent=False)
         self.to(dev)
-        if dev.type == "cuda" and "mamba" in cfg.layer_types:
-            load_ssd_scan()  # a first build falls in set-up
+        if dev.type == "cuda":  # a first build falls in set-up
+            load_rms_norm()
+            if "mamba" in cfg.layer_types:
+                load_ssd_scan()
 
     clip_global_norm = property(lambda self: self.cfg.clip_global_norm)
 

@@ -92,7 +92,8 @@ def test_sources_import_no_jax(path):
 
 
 @pytest.mark.parametrize("args", [[]] + [["--phase", p] for p in (
-    "single_pass", "tokenizer", "reference", "parallel", "long_windows", "batchnorm_gelu")],
+    "single_pass", "tokenizer", "reference", "parallel", "long_windows", "batchnorm_gelu",
+    "rms_norm")],
     ids=lambda a: " ".join(a) or "all")
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path, args):
     """Without CUDA the smoke script, whole or one phase, exits non-zero and
