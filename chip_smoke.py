@@ -245,11 +245,31 @@ cite them (there is no phase 6; any failure exits non-zero; nothing is caught):
    their byte bounds (each input read and each output written once), the
    plain version's, and ``F.rms_norm`` in bf16 as the library yardstick.
 
+23. The Nemotron-H hybrid (``tools/nemotron_step_check.py``).  First the
+   main path: one bf16 forward and backward of ``NemotronH(
+   NemotronHConfig())`` on the benchmark cell's 2 window pairs of 8,192 bp,
+   the scan's, the norms' and the MoE layers' counters reset to 0 just
+   before it: 6 and 6 scan calls (48 launches), 20 and 20 norm calls (the 6
+   mixers' gated, 60 launches), 5 MoE calls routing every token's 6 slots,
+   some of them held here, a finite loss, and the step's memory peak.  Then
+   the scan's kernels in 8 groups of ``B`` and ``C`` at chunks of 128 against
+   the plain version at the cell's ``(4, 8192)`` (64 heads of 64, a state of
+   128) and at a small odd shape, as phase 21 compares; the norms' kernels
+   at the cell's plain rows of 2,688 and its mixers' gated rows of 4,096 in
+   groups of 512, the gate a view of a 10,304-wide tensor, in bf16 and
+   float32, as phase 22 compares; one MoE layer (16 of 128 experts held,
+   32,768 tokens) against its float32 plain form, one held expert at a
+   time: the output, the input's and every leaf's gradient within 2% of
+   its norm.  And the held experts' grouped products (``torch._grouped_mm``)
+   and ReLU² of one forward: device ms (CUDA events, 10 calls) beside their
+   bound, the larger of their FLOPs over 989 TFLOP/s and their least bytes
+   over 3.35 TB/s.
+
 ``--phase NAME`` runs one phase alone, with the set-up it needs, and prints
 its JSON line: ``single_pass`` (phases 7, 8 and 14), ``tokenizer`` (7, 8, 14
 and 16), ``reference`` (15), ``parallel`` (the converter files of phases 7
 and 14, then 17), ``long_windows`` (2 and 19), ``batchnorm_gelu`` (20),
-``ssd_scan`` (21) or ``rms_norm`` (22).  ``--parallel DIR`` is
+``ssd_scan`` (21), ``rms_norm`` (22) or ``nemotron`` (23).  ``--parallel DIR`` is
 phase 17's child process.
 
 The lines before the last are a JSON object ``{"train": {...}}`` of phase
@@ -258,7 +278,8 @@ The lines before the last are a JSON object ``{"train": {...}}`` of phase
 phase 16's, one ``{"parallel": {...}}`` of phase 17's, one ``{"chain":
 {...}}`` of phase 18's, one ``{"long_windows": {...}}`` of phase 19's, one
 ``{"batchnorm_gelu": {...}}`` of phase 20's, one ``{"ssd_scan": {...}}`` of
-phase 21's, one ``{"rms_norm": {...}}`` of phase 22's, one with one entry per kernel (its launches, and its times where phases 10 and
+phase 21's, one ``{"rms_norm": {...}}`` of phase 22's, one ``{"nemotron":
+{...}}`` of phase 23's, one with one entry per kernel (its launches, and its times where phases 10 and
 12 take them), then the comparisons made; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -405,16 +426,32 @@ from haplohyped_tpu_torch.tools.granite_step_check import (
     check_granite_step,
     granite_step,
 )
+from haplohyped_tpu_torch.tools.nemotron_step_check import (
+    check_nemotron_step,
+    experts_times,
+    moe_compare,
+    nemotron_step,
+)
 from haplohyped_tpu_torch.tools.rms_norm_check import (
     EPS as RMS_EPS,
     HIDDEN,
     IN_PROJ,
     MIXER,
+    NEMOTRON_GROUP,
+    NEMOTRON_HIDDEN,
+    NEMOTRON_IN_PROJ,
+    NEMOTRON_ROWS,
     ROWS,
     rms_compare,
     rms_inputs,
 )
-from haplohyped_tpu_torch.tools.ssd_scan_check import CELL_SHAPE, ssd_compare, ssd_inputs
+from haplohyped_tpu_torch.tools.ssd_scan_check import (
+    CELL_SHAPE,
+    NEMOTRON_CHUNK,
+    NEMOTRON_SHAPE,
+    ssd_compare,
+    ssd_inputs,
+)
 from haplohyped_tpu_torch.tools.deployment import N_REGIONS, make_cohort, make_regions, make_state
 from haplohyped_tpu_torch.utils.bitpack import pack_2bit
 
@@ -2983,6 +3020,51 @@ def rms_norm_phase(card: str, seed: int, step: dict | None = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 23: the Nemotron-H hybrid
+
+#: (rows, width, gated, the width of the tensor the gate is a view of, the
+#: group) of phase 23's norm comparisons: the Nemotron-H cell's plain and
+#: grouped gated norms
+NEMOTRON_RMS_CASES = ((NEMOTRON_ROWS, NEMOTRON_HIDDEN, False, None, None),
+                      (NEMOTRON_ROWS, MIXER, True, NEMOTRON_IN_PROJ, NEMOTRON_GROUP))
+
+
+def nemotron_phase(card: str, seed: int) -> dict:
+    """Phase 23.  Returns the main path's step, the comparisons' gaps and the
+    held experts' products' time."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    step = nemotron_step(seed)
+    check_nemotron_step(step)
+    log(f"a step of NemotronH(NemotronHConfig()) on 2 window pairs of 8192 bp in "
+        f"{time.perf_counter() - t0:.1f} s: {step}")
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    ssd_scan.launches = ssd_scan.forward_calls = ssd_scan.backward_calls = 0
+    gaps = {}
+    for shape in (NEMOTRON_SHAPE, (3, 640, 6, 24, 40, 3)):
+        gaps[f"ssd {shape}"] = ssd_compare(ssd_inputs(shape, gen, dev), NEMOTRON_CHUNK)
+        torch.cuda.empty_cache()
+    check(ssd_scan.forward_calls == ssd_scan.backward_calls == 4 and ssd_scan.launches == 32,
+          f"{ssd_scan.forward_calls} forward and {ssd_scan.backward_calls} backward calls, "
+          f"{ssd_scan.launches} launches")
+    for rows, width, gated, gate_from, group in NEMOTRON_RMS_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            what = f"rms_norm ({rows}, {width}) group {group} {dtype}"
+            gaps[what] = rms_compare(rms_inputs(rows, width, gated, dtype, gen, gate_from), what,
+                                     group)
+            torch.cuda.empty_cache()
+    moe = moe_compare(seed + 1)
+    gaps["moe"] = moe["gaps"]
+    log(f"nemotron: {len(gaps)} comparisons in {time.perf_counter() - t0:.1f} s; gaps {gaps}; "
+        f"the MoE layer's counters {moe['counters']}")
+    times = experts_times(seed + 2, device_ms)
+    log(f"the held experts' grouped products at 32768 tokens, 16 of 128 experts ({card}): "
+        f"{times}")
+    return {"step": step, "comparisons": len(gaps), "gaps": gaps,
+            "moe_counters": moe["counters"], "experts_times": times}
+
+
+# ---------------------------------------------------------------------------
 
 #: the kernels line's times of the window and draw kernels, which the
 #: benchmark measures (``portbench/run.py``: ``link_roofline.chain``,
@@ -2990,7 +3072,7 @@ def rms_norm_phase(card: str, seed: int, step: dict | None = None) -> dict:
 UNTIMED = {"ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None}
 #: the phases ``--phase`` runs alone
 PHASES = ("single_pass", "tokenizer", "reference", "parallel", "long_windows", "batchnorm_gelu",
-          "ssd_scan", "rms_norm")
+          "ssd_scan", "rms_norm", "nemotron")
 
 
 def run_phase(name: str, seed: int) -> dict:
@@ -3003,6 +3085,8 @@ def run_phase(name: str, seed: int) -> dict:
         return {"ssd_scan": ssd_scan_phase(card, seed)}
     if name == "rms_norm":
         return {"rms_norm": rms_norm_phase(card, seed)}
+    if name == "nemotron":
+        return {"nemotron": nemotron_phase(card, seed)}
     if name == "long_windows":
         genome, cohort, regions = make_state(seed, dev)
         sampler = DeviceHaplotypeSampler(genome, cohort, regions,
@@ -3250,6 +3334,11 @@ def main() -> int:
     rms = rms_norm_phase(card, args.seed, granite)
     log(json.dumps({"rms_norm": rms}))
 
+    # -- 23. the Nemotron-H hybrid -----------------------------------------
+    torch.cuda.empty_cache()
+    nemotron = nemotron_phase(card, args.seed)
+    log(json.dumps({"nemotron": nemotron}))
+
     kernels = [{
         "name": "window_kernel",
         "route": "cuda",
@@ -3354,7 +3443,8 @@ def main() -> int:
                                     "lab": lab_cmp.count, "long": long_cmp.count,
                                     "decode": dec.count, "batchnorm_gelu": bn["comparisons"],
                                     "ssd_scan": ssd["comparisons"],
-                                    "rms_norm": rms["comparisons"]}}))
+                                    "rms_norm": rms["comparisons"],
+                                    "nemotron": nemotron["comparisons"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,7 @@ from haplohyped_tpu_torch.data.sampler import DeviceHaplotypeSampler, HaplotypeB
 from haplohyped_tpu_torch.models.enformer import Enformer, EnformerConfig
 from haplohyped_tpu_torch.models.granite_hybrid import GraniteHybrid, GraniteHybridConfig
 from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
+from haplohyped_tpu_torch.models.nemotron_h import NemotronH, NemotronHConfig
 from haplohyped_tpu_torch.models.train import train_on_sampler
 from haplohyped_tpu_torch.version import __version__
 
@@ -44,6 +45,8 @@ __all__ = [
     "HaploFormerConfig",
     "HaplotypeBatch",
     "MeshConfig",
+    "NemotronH",
+    "NemotronHConfig",
     "SamplerConfig",
     "load_bed_regions",
     "train_on_sampler",

@@ -5,17 +5,22 @@
 //   u = x * silu(g)  (gated: Mamba-2's mixer, g its gate z)   or   u = x
 //   r = 1 / sqrt(mean(u^2) + eps),  xh = u r,  out = xh w
 //
-// and backward from dout, with gy = dout w and c = mean(gy xh) over the row:
+// where the mean is over the row, or (grouped, gated only: Mamba-2's mixer
+// with several groups of B and C, which normalises each group's columns on
+// their own) over each group of `group` consecutive columns, r one a group;
+// and backward from dout, with gy = dout w and c = mean(gy xh) over the row
+// (or the group):
 //
 //   du = r (gy - xh c),  dw = sum over rows of dout xh
 //   dx = du silu(g),  dg = du x sigmoid(g) (1 + g (1 - sigmoid(g)))   (gated)
 //   dx = du                                                           (plain)
 //
 // It ports no Pallas kernel: the JAX package has no Granite hybrid.  It was
-// added for the norms of haplohyped_tpu_torch/models/granite_hybrid.py,
-// where RMSNorm as torch ops (a float32 copy, pow, mean, rsqrt, two products,
-// the cast back) and the mixer's gate before it (two float32 copies, silu and
-// a product) make about 138 and 206 bytes of elementwise traffic an element
+// added for the norms of haplohyped_tpu_torch/models/granite_hybrid.py (and
+// serves models/nemotron_h.py's, grouped in its mixers), where RMSNorm as
+// torch ops (a float32 copy, pow, mean, rsqrt, two products, the cast
+// back) and the mixer's gate before it (two float32 copies, silu and a
+// product) make about 138 and 206 bytes of elementwise traffic an element
 // forward and backward, and autograd keeps their float32 intermediates.  It
 // computes ops/rms_norm.py::rms_norm_plain, the same function in torch ops.
 //
@@ -45,7 +50,10 @@
 //      (backward_blocks below).
 // A launch takes D a multiple of 8 (16 bytes of bf16 or 32 of float32) up to
 // 128 threads x 8 vectors (8,192 bf16, 4,096 float32), and 16-byte aligned
-// rows; the wrapper refuses anything else.
+// rows; a group that divides D into whole warps' vectors (a multiple of 32
+// vectors: 256 bf16 or 128 float32 columns); the wrapper refuses anything
+// else.  A grouped row's sums are a warp's shuffle a vector, then the
+// warps' sums of one group added in a fixed order through shared memory.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -123,24 +131,55 @@ __device__ __forceinline__ float row_sum(float v, float (*red)[kGroups][kRowWarp
   return total;
 }
 
+// The slots of a row's grouped sums: one a (warp, vector index); slot k
+// holds the sum over vectors [32 k, 32 k + 32) of the row.
+constexpr int kSlots = kRowWarps * kMaxVecs;
+
+// Grouped: out[i] = the sum of v over the group of this thread's vector i,
+// the groups `slots` slots (32 `slots` vectors) wide; every thread of a
+// group gets the same bits.  As row_sum, one barrier a call.
+template <int kVecs>
+__device__ __forceinline__ void group_sums(const float (&v)[kVecs], float (&out)[kVecs],
+                                           float (*red)[kGroups][kSlots], int parity, int slots) {
+  const int warp = (threadIdx.x % kRowThreads) / 32, rg = threadIdx.x / kRowThreads;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    float a = v[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
+    if (threadIdx.x % 32 == 0) red[parity][rg][warp + kRowWarps * i] = a;
+  }
+  __syncthreads();
+  const float* s = red[parity][rg];
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int first = (warp + kRowWarps * i) / slots * slots;
+    float total = 0.0f;
+    for (int k = first; k < first + slots; ++k) total += s[k];
+    out[i] = total;
+  }
+}
+
 // --- forward ---------------------------------------------------------------
 
-// block b holds rows b * kGroups + {0, 1}: out (contiguous) and rstd
-template <typename T, int kVecs, bool kGated>
+// block b holds rows b * kGroups + {0, 1}: out (contiguous) and rstd (one
+// a row, or grouped one a group: D / group a row)
+template <typename T, int kVecs, bool kGated, bool kGrouped>
 __global__ void __launch_bounds__(kThreads) rms_norm_fwd_kernel(
     const T* __restrict__ x, long long x_stride, const T* __restrict__ g, long long g_stride,
-    const float* __restrict__ weight, int R, int D, float eps, T* __restrict__ out,
+    const float* __restrict__ weight, int R, int D, int group, float eps, T* __restrict__ out,
     float* __restrict__ rstd) {
   constexpr int V = Vec<T>::n;
-  __shared__ float red[2][kGroups][kRowWarps];
+  __shared__ float red[2][kGroups][kGrouped ? kSlots : kRowWarps];
   const int t = threadIdx.x % kRowThreads;
   const int row = blockIdx.x * kGroups + threadIdx.x / kRowThreads;
   const bool on = row < R;
   float u[kVecs][V];
-  float ss = 0.0f;
+  float ss = 0.0f, ssv[kVecs];
 #pragma unroll
   for (int i = 0; i < kVecs; ++i) {
     const int at = (t + i * kRowThreads) * V;
+    ssv[i] = 0.0f;
     if (!on || at >= D) continue;
     unpack(*reinterpret_cast<const uint4*>(x + row * x_stride + at), u[i]);
     if constexpr (kGated) {
@@ -149,10 +188,24 @@ __global__ void __launch_bounds__(kThreads) rms_norm_fwd_kernel(
 #pragma unroll
       for (int j = 0; j < V; ++j) u[i][j] *= gv[j] * sigmoid(gv[j]);
     }
+    if constexpr (kGrouped) {
 #pragma unroll
-    for (int j = 0; j < V; ++j) ss += u[i][j] * u[i][j];
+      for (int j = 0; j < V; ++j) ssv[i] += u[i][j] * u[i][j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) ss += u[i][j] * u[i][j];
+    }
   }
-  const float r = rsqrtf(row_sum(ss, red, 0) / static_cast<float>(D) + eps);
+  float rv[kVecs];
+  if constexpr (kGrouped) {
+    group_sums<kVecs>(ssv, rv, red, 0, group / V / 32);
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) rv[i] = rsqrtf(rv[i] / static_cast<float>(group) + eps);
+  } else {
+    const float r = rsqrtf(row_sum(ss, red, 0) / static_cast<float>(D) + eps);
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) rv[i] = r;
+  }
   if (!on) return;
 #pragma unroll
   for (int i = 0; i < kVecs; ++i) {
@@ -161,10 +214,14 @@ __global__ void __launch_bounds__(kThreads) rms_norm_fwd_kernel(
     float w[V];
     load_weight(weight + at, w);
 #pragma unroll
-    for (int j = 0; j < V; ++j) u[i][j] = u[i][j] * r * w[j];
+    for (int j = 0; j < V; ++j) u[i][j] = u[i][j] * rv[i] * w[j];
     *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * D + at) = pack(u[i]);
+    // a group's first vector writes its r
+    if constexpr (kGrouped)
+      if (at % group == 0) rstd[static_cast<long long>(row) * (D / group) + at / group] = rv[i];
   }
-  if (t == 0) rstd[row] = r;
+  if constexpr (!kGrouped)
+    if (t == 0) rstd[row] = rv[0];
 }
 
 // --- backward --------------------------------------------------------------
@@ -184,15 +241,15 @@ constexpr int backward_blocks() {
 
 // block b takes rows [b * per_block, min(R, (b + 1) * per_block)), kGroups at
 // a time: dx (and dg), contiguous, and partial[b] = its rows' sum of dout xh
-template <typename T, int kVecs, bool kGated>
+template <typename T, int kVecs, bool kGated, bool kGrouped>
 __global__ void __launch_bounds__(kThreads, (backward_blocks<kGated, kVecs * Vec<T>::n>()))
     rms_norm_bwd_kernel(
     const T* __restrict__ x, long long x_stride, const T* __restrict__ g, long long g_stride,
     const T* __restrict__ dout, long long dout_stride, const float* __restrict__ weight,
-    const float* __restrict__ rstd, int R, int D, int per_block, T* __restrict__ dx,
+    const float* __restrict__ rstd, int R, int D, int group, int per_block, T* __restrict__ dx,
     T* __restrict__ dg, float* __restrict__ partial) {
   constexpr int V = Vec<T>::n;
-  __shared__ float red[2][kGroups][kRowWarps];
+  __shared__ float red[2][kGroups][kGrouped ? kSlots : kRowWarps];
   const int t = threadIdx.x % kRowThreads;
   const int begin = blockIdx.x * per_block, end = min(R, begin + per_block);
   float acc[kVecs][V];
@@ -213,11 +270,17 @@ __global__ void __launch_bounds__(kThreads, (backward_blocks<kGated, kVecs * Vec
       rd[i] = *reinterpret_cast<const uint4*>(dout + row * dout_stride + at);
       if constexpr (kGated) rg[i] = *reinterpret_cast<const uint4*>(g + row * g_stride + at);
     }
-    const float r = on ? rstd[row] : 0.0f;
-    float dot = 0.0f;
+    // grouped: r and c of each vector's group
+    float r = 0.0f, dot = 0.0f, rv[kVecs], dotv[kVecs], cv[kVecs];
+    if constexpr (!kGrouped) r = on ? rstd[row] : 0.0f;
 #pragma unroll
     for (int i = 0; i < kVecs; ++i) {
       const int at = (t + i * kRowThreads) * V;
+      if constexpr (kGrouped) {
+        rv[i] = on && at < D ? rstd[static_cast<long long>(row) * (D / group) + at / group] : 0.0f;
+        dotv[i] = 0.0f;
+        r = rv[i];
+      }
       if (!on || at >= D) continue;
       float xv[V], dv[V], w[V];
       unpack(rx[i], xv);
@@ -232,17 +295,31 @@ __global__ void __launch_bounds__(kThreads, (backward_blocks<kGated, kVecs * Vec
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const float xh = xv[j] * r;
-        dot += dv[j] * w[j] * xh;
+        if constexpr (kGrouped)
+          dotv[i] += dv[j] * w[j] * xh;
+        else
+          dot += dv[j] * w[j] * xh;
         acc[i][j] += dv[j] * xh;
       }
     }
-    const float c = row_sum(dot, red, parity) / static_cast<float>(D);
+    float c = 0.0f;
+    if constexpr (kGrouped) {
+      group_sums<kVecs>(dotv, cv, red, parity, group / V / 32);
+#pragma unroll
+      for (int i = 0; i < kVecs; ++i) cv[i] /= static_cast<float>(group);
+    } else {
+      c = row_sum(dot, red, parity) / static_cast<float>(D);
+    }
     parity ^= 1;
     if (!on) continue;
 #pragma unroll
     for (int i = 0; i < kVecs; ++i) {
       const int at = (t + i * kRowThreads) * V;
       if (at >= D) continue;
+      if constexpr (kGrouped) {
+        r = rv[i];
+        c = cv[i];
+      }
       float xv[V], dv[V], w[V];
       unpack(rx[i], xv);
       unpack(rd[i], dv);
@@ -342,56 +419,93 @@ int parts_of(int R) {
   return (R + per - 1) / per;
 }
 
-template <typename T, int kVecs, bool kGated>
+// 1 where `group` columns divide a row of D into whole warps' vectors of
+// `dtype` (or group == D: one group, the plain row), else 0
+int group_ok(int dtype, int D, int group) {
+  if (group == D) return 1;
+  return group > 0 && D % group == 0 && group % (32 * elements(dtype)) == 0;
+}
+
+template <typename T, int kVecs, bool kGated, bool kGrouped>
 int forward(const void* x, long long xs, const void* g, long long gs, const float* w, int R,
-            int D, float eps, void* out, float* rstd, cudaStream_t stream) {
+            int D, int group, float eps, void* out, float* rstd, cudaStream_t stream) {
   const int blocks = (R + kGroups - 1) / kGroups;
-  rms_norm_fwd_kernel<T, kVecs, kGated><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), xs, static_cast<const T*>(g), gs, w, R, D, eps,
+  rms_norm_fwd_kernel<T, kVecs, kGated, kGrouped><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), xs, static_cast<const T*>(g), gs, w, R, D, group, eps,
       static_cast<T*>(out), rstd);
   return cudaGetLastError();
 }
 
-template <typename T, int kVecs, bool kGated>
+template <typename T, int kVecs, bool kGated, bool kGrouped>
 int backward(const void* x, long long xs, const void* g, long long gs, const void* dout,
-             long long ds, const float* w, const float* rstd, int R, int D, void* dx, void* dg,
-             float* partial, float* dw, cudaStream_t stream) {
+             long long ds, const float* w, const float* rstd, int R, int D, int group, void* dx,
+             void* dg, float* partial, float* dw, cudaStream_t stream) {
   const int per = rows_per_block(R), parts = parts_of(R);
-  rms_norm_bwd_kernel<T, kVecs, kGated><<<parts, kThreads, 0, stream>>>(
+  rms_norm_bwd_kernel<T, kVecs, kGated, kGrouped><<<parts, kThreads, 0, stream>>>(
       static_cast<const T*>(x), xs, static_cast<const T*>(g), gs, static_cast<const T*>(dout),
-      ds, w, rstd, R, D, per, static_cast<T*>(dx), static_cast<T*>(dg), partial);
+      ds, w, rstd, R, D, group, per, static_cast<T*>(dx), static_cast<T*>(dg), partial);
   if (cudaError_t e = cudaGetLastError()) return e;
   rms_norm_dw_sum_kernel<<<(D + 31) / 32, kSumWarps * 32, 0, stream>>>(partial, parts, D, dw);
   return cudaGetLastError();
 }
 
-// the instantiation for (dtype, vecs, gated)
-template <typename T, bool kGated>
+// the instantiation for (dtype, vecs, gated, grouped)
+template <typename T, bool kGated, bool kGrouped>
 int forward_of(int vecs, const void* x, long long xs, const void* g, long long gs,
-               const float* w, int R, int D, float eps, void* out, float* rstd,
+               const float* w, int R, int D, int group, float eps, void* out, float* rstd,
                cudaStream_t s) {
   switch (vecs) {
-    case 1: return forward<T, 1, kGated>(x, xs, g, gs, w, R, D, eps, out, rstd, s);
-    case 2: return forward<T, 2, kGated>(x, xs, g, gs, w, R, D, eps, out, rstd, s);
-    case 4: return forward<T, 4, kGated>(x, xs, g, gs, w, R, D, eps, out, rstd, s);
-    default: return forward<T, 8, kGated>(x, xs, g, gs, w, R, D, eps, out, rstd, s);
+    case 1: return forward<T, 1, kGated, kGrouped>(x, xs, g, gs, w, R, D, group, eps, out, rstd, s);
+    case 2: return forward<T, 2, kGated, kGrouped>(x, xs, g, gs, w, R, D, group, eps, out, rstd, s);
+    case 4: return forward<T, 4, kGated, kGrouped>(x, xs, g, gs, w, R, D, group, eps, out, rstd, s);
+    default:
+      return forward<T, 8, kGated, kGrouped>(x, xs, g, gs, w, R, D, group, eps, out, rstd, s);
   }
 }
 
-template <typename T, bool kGated>
+template <typename T, bool kGated, bool kGrouped>
 int backward_of(int vecs, const void* x, long long xs, const void* g, long long gs,
                 const void* dout, long long ds, const float* w, const float* rstd, int R, int D,
-                void* dx, void* dg, float* partial, float* dw, cudaStream_t s) {
+                int group, void* dx, void* dg, float* partial, float* dw, cudaStream_t s) {
   switch (vecs) {
     case 1:
-      return backward<T, 1, kGated>(x, xs, g, gs, dout, ds, w, rstd, R, D, dx, dg, partial, dw, s);
+      return backward<T, 1, kGated, kGrouped>(x, xs, g, gs, dout, ds, w, rstd, R, D, group, dx,
+                                              dg, partial, dw, s);
     case 2:
-      return backward<T, 2, kGated>(x, xs, g, gs, dout, ds, w, rstd, R, D, dx, dg, partial, dw, s);
+      return backward<T, 2, kGated, kGrouped>(x, xs, g, gs, dout, ds, w, rstd, R, D, group, dx,
+                                              dg, partial, dw, s);
     case 4:
-      return backward<T, 4, kGated>(x, xs, g, gs, dout, ds, w, rstd, R, D, dx, dg, partial, dw, s);
+      return backward<T, 4, kGated, kGrouped>(x, xs, g, gs, dout, ds, w, rstd, R, D, group, dx,
+                                              dg, partial, dw, s);
     default:
-      return backward<T, 8, kGated>(x, xs, g, gs, dout, ds, w, rstd, R, D, dx, dg, partial, dw, s);
+      return backward<T, 8, kGated, kGrouped>(x, xs, g, gs, dout, ds, w, rstd, R, D, group, dx,
+                                              dg, partial, dw, s);
   }
+}
+
+// the instantiation for dtype and kind: plain, gated, or gated over groups
+template <typename T>
+int forward_kind(int vecs, const void* x, long long xs, const void* g, long long gs,
+                 const float* w, int R, int D, int group, float eps, void* out, float* rstd,
+                 cudaStream_t s) {
+  if (!g) return forward_of<T, false, false>(vecs, x, xs, g, gs, w, R, D, D, eps, out, rstd, s);
+  if (group == D)
+    return forward_of<T, true, false>(vecs, x, xs, g, gs, w, R, D, D, eps, out, rstd, s);
+  return forward_of<T, true, true>(vecs, x, xs, g, gs, w, R, D, group, eps, out, rstd, s);
+}
+
+template <typename T>
+int backward_kind(int vecs, const void* x, long long xs, const void* g, long long gs,
+                  const void* dout, long long ds, const float* w, const float* rstd, int R, int D,
+                  int group, void* dx, void* dg, float* partial, float* dw, cudaStream_t s) {
+  if (!g)
+    return backward_of<T, false, false>(vecs, x, xs, g, gs, dout, ds, w, rstd, R, D, D, dx, dg,
+                                        partial, dw, s);
+  if (group == D)
+    return backward_of<T, true, false>(vecs, x, xs, g, gs, dout, ds, w, rstd, R, D, D, dx, dg,
+                                       partial, dw, s);
+  return backward_of<T, true, true>(vecs, x, xs, g, gs, dout, ds, w, rstd, R, D, group, dx, dg,
+                                    partial, dw, s);
 }
 
 }  // namespace
@@ -405,25 +519,28 @@ int hh_rmsnorm_parts(int dtype, int R, int D) {
   return vecs_of(dtype, R, D) ? parts_of(R) : 0;
 }
 
+// 1 where the kernels take groups of `group` columns in rows of D of
+// `dtype` (group == D: the whole row), else 0.
+int hh_rmsnorm_group_ok(int dtype, int D, int group) {
+  return vecs_of(dtype, 1, D) && group_ok(dtype, D, group);
+}
+
 // The forward on `stream` over R rows of D: x's row i at x + i * x_stride
 // elements, the gate's (null: plain) at g + i * g_stride; out (R, D)
-// contiguous, rstd R floats.  Returns cudaGetLastError() of its one launch,
-// or cudaErrorInvalidValue for a refused shape.
+// contiguous, rstd R * (D / group) floats.  A group narrower than the row
+// takes a gate.  Returns cudaGetLastError() of its one launch, or
+// cudaErrorInvalidValue for a refused shape.
 int hh_rmsnorm_forward(const void* x, long long x_stride, const void* g, long long g_stride,
-                       int dtype, int R, int D, const float* weight, float eps, void* out,
-                       float* rstd, void* stream) {
+                       int dtype, int R, int D, int group, const float* weight, float eps,
+                       void* out, float* rstd, void* stream) {
   const int vecs = vecs_of(dtype, R, D);
-  if (!vecs) return (int)cudaErrorInvalidValue;
+  if (!vecs || !group_ok(dtype, D, group) || (group != D && !g)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kBf16)
-    return g ? forward_of<__nv_bfloat16, true>(vecs, x, x_stride, g, g_stride, weight, R, D,
-                                                eps, out, rstd, s)
-             : forward_of<__nv_bfloat16, false>(vecs, x, x_stride, g, g_stride, weight, R, D,
-                                                 eps, out, rstd, s);
-  return g ? forward_of<float, true>(vecs, x, x_stride, g, g_stride, weight, R, D, eps, out,
-                                     rstd, s)
-           : forward_of<float, false>(vecs, x, x_stride, g, g_stride, weight, R, D, eps, out,
-                                      rstd, s);
+    return forward_kind<__nv_bfloat16>(vecs, x, x_stride, g, g_stride, weight, R, D, group, eps,
+                                       out, rstd, s);
+  return forward_kind<float>(vecs, x, x_stride, g, g_stride, weight, R, D, group, eps, out, rstd,
+                             s);
 }
 
 // The backward on `stream` from the forward's x, g (null: plain) and rstd
@@ -433,22 +550,18 @@ int hh_rmsnorm_forward(const void* x, long long x_stride, const void* g, long lo
 // last of its 2 launches, or cudaErrorInvalidValue for a refused shape.
 int hh_rmsnorm_backward(const void* x, long long x_stride, const void* g, long long g_stride,
                         const void* dout, long long dout_stride, int dtype, int R, int D,
-                        const float* weight, const float* rstd, void* dx, void* dg,
+                        int group, const float* weight, const float* rstd, void* dx, void* dg,
                         float* partial, float* dw, void* stream) {
   const int vecs = vecs_of(dtype, R, D);
-  if (!vecs || (g != nullptr) != (dg != nullptr)) return (int)cudaErrorInvalidValue;
+  if (!vecs || (g != nullptr) != (dg != nullptr) || !group_ok(dtype, D, group) ||
+      (group != D && !g))
+    return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kBf16)
-    return g ? backward_of<__nv_bfloat16, true>(vecs, x, x_stride, g, g_stride, dout,
-                                                 dout_stride, weight, rstd, R, D, dx, dg,
-                                                 partial, dw, s)
-             : backward_of<__nv_bfloat16, false>(vecs, x, x_stride, g, g_stride, dout,
-                                                  dout_stride, weight, rstd, R, D, dx, dg,
-                                                  partial, dw, s);
-  return g ? backward_of<float, true>(vecs, x, x_stride, g, g_stride, dout, dout_stride, weight,
-                                      rstd, R, D, dx, dg, partial, dw, s)
-           : backward_of<float, false>(vecs, x, x_stride, g, g_stride, dout, dout_stride, weight,
-                                       rstd, R, D, dx, dg, partial, dw, s);
+    return backward_kind<__nv_bfloat16>(vecs, x, x_stride, g, g_stride, dout, dout_stride, weight,
+                                        rstd, R, D, group, dx, dg, partial, dw, s);
+  return backward_kind<float>(vecs, x, x_stride, g, g_stride, dout, dout_stride, weight, rstd, R,
+                              D, group, dx, dg, partial, dw, s);
 }
 
 const char* hh_rmsnorm_error_string(int code) {

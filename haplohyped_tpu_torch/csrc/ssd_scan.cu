@@ -7,11 +7,12 @@
 // passes and reductions around them.
 //
 // It ports no Pallas kernel: the JAX package has no state-space model.  It
-// was added for the Mamba-2 mixers of models/granite_hybrid.py, and computes
-// ops/ssd_scan.py::ssd_scan_plain.  Per batch row b and head h, with chunk
-// length Q, s_i the inclusive sum of a_k = dt_k A over the chunk up to i,
-// G = C B^T (one group: shared by the heads), and a chunk's entering state
-// H_c (H_0 = 0):
+// was added for the Mamba-2 mixers of models/granite_hybrid.py and
+// models/nemotron_h.py, and computes ops/ssd_scan.py::ssd_scan_plain.  Per
+// batch row b and head h, with chunk length Q, s_i the inclusive sum of a_k =
+// dt_k A over the chunk up to i, G = C B^T of h's group (the heads come in
+// groups of H / NG consecutive heads that share one B and one C; NG = 1 is
+// one group for every head), and a chunk's entering state H_c (H_0 = 0):
 //   M[i, j]  = G[i, j] exp(s_i - s_j) dt_j    (j <= i; else 0)
 //   y_diag   = M x
 //   w_j      = exp(s_last - s_j) dt_j,   S_c = (x * w)^T B
@@ -20,18 +21,25 @@
 // The backward recomputes everything from the inputs; its products are
 //   dM = dy x^T, dx_diag = M^T dy, dH_c = (dy e^s)^T C, dC_off = (dy e^s) H_c,
 //   dS_c = dH_{c+1} (the reverse pass), dB_state = (x w) dS, d(xw) = B dS^T,
-//   dG = sum_h dM exp(s_i - s_j) dt_j, dC_diag = dG B, dB_diag = dG^T C,
+//   dG = sum over the group's h of dM exp(s_i - s_j) dt_j, dC_diag = dG B,
+//   dB_diag = dG^T C,
 // and these kernels the rest: the reverse state pass, the mask's gradient
 // (dG, and its row and column sums into ds and ddt), and the finish (dx, the
 // gradient of s through the chunk's inclusive sum into dt and A, and dD).
 //
-// Layouts (b batch rows, T tokens, H heads, P head size, N state size, Q =
-// 256, nc = T / Q): x, y, dx, dy, xw, y_off, d(xw) (b, T, H, P); dt, ddt
-// (b, T, H) float32; s, dt^T, ds, ddt_acc (b, H, T) float32; e = exp(s_last)
-// and de (b, H, nc) float32; G, dG (b nc, Q, Q) float32; M, dM (b nc H, Q,
-// Q); x_h, dy_h, y_diag, dx_diag (b nc H, Q, P); S, H_c float32 and H_c's
-// bf16 copy Hb, dH, dS (b nc, H P, N).  Everything bf16 that is not named
-// float32.  The states stay float32 from the product that makes S (float32
+// Layouts (b batch rows, T tokens, H heads, P head size, N state size, NG
+// groups of Hg = H / NG heads, Q = 128 or 256 (a template argument), nc = T /
+// Q): x, y, dx, dy (b, T, H, P); xw, dye = dy exp(s), y_off, d(xw) group-major
+// (b nc NG, Q, Hg P), the operands of the per-group products (with NG = 1
+// the layout of x); dt, ddt (b, T, H) float32; s, dt^T, ds, ddt_acc (b, H, T)
+// float32; e = exp(s_last) and de (b, H, nc) float32; G, dG (b nc NG, Q, Q)
+// float32; M, dM (b nc H, Q, Q); x_h, dy_h, y_diag, dx_diag (b nc H, Q, P);
+// S, H_c float32 and H_c's bf16 copy Hb, dH, dS (b nc, H P, N).  Everything
+// bf16 that is not named float32.  Each kernel that indexes by group has a
+// one-group build (kOne) whose index arithmetic is x's layout alone, so one
+// group (the Granite hybrid) runs the arithmetic it ran before groups were
+// taken: an index by group in every element of the combine cost its forward
+// 12% on the card.  The states stay float32 from the product that makes S (float32
 // out) through the pass; Hb, an entering state rounded once, is only the
 // operand of the tensor-core products C H_c^T and (dy e^s) H_c, as Mamba-2's
 // own kernels round the states they multiply by C.
@@ -40,8 +48,9 @@
 // bytes.  The mask is the largest array, Q * Q a chunk and head, written
 // once by the prep kernel and read once by the product; its gradient dM is
 // read once by the mask-backward kernel, which sums it over the heads in
-// registers (one block owns 16 rows of one chunk for all H heads) so dG is
-// written once, with no atomics; the row and column sums go to ds and ddt by
+// registers (one block owns 16 rows of one chunk for all Hg heads of a group) so dG is
+// written once, with no atomics (a block sums the heads of one group); the
+// row and column sums go to ds and ddt by
 // warp-reduced atomics.  The state passes run one thread an element of the
 // (P, N) state, looping over the chunks in order: the state never leaves a
 // register, and the chunks' states are read and written once.
@@ -52,10 +61,8 @@
 
 namespace {
 
-constexpr int kQ = 256;              // the chunk: one thread a position
-constexpr int kWarps = kQ / 32;
-constexpr int kRows = 16;            // rows of a chunk a mask-backward block
-constexpr int kPass = 256;           // threads a state-pass block
+constexpr int kRows = 16;   // rows of a chunk a mask-backward block
+constexpr int kPass = 256;  // threads a state-pass block
 
 typedef __nv_bfloat16 bf16;
 
@@ -68,8 +75,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Inclusive sum over the block's kQ threads; `tmp` holds kWarps floats.
+// Inclusive sum over the block's Q threads; `tmp` holds Q / 32 floats.
+template <int Q>
 __device__ __forceinline__ float block_scan(float v, float* tmp) {
+  constexpr int kWarps = Q / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -93,80 +102,97 @@ __device__ __forceinline__ float block_scan(float v, float* tmp) {
   return out;
 }
 
-// The sum over the block's threads, in every thread; `tmp` holds kWarps floats.
+// The sum over the block's Q threads, in every thread; `tmp` holds Q / 32 floats.
+template <int Q>
 __device__ __forceinline__ float block_sum(float v, float* tmp) {
   v = warp_sum(v);
   if ((threadIdx.x & 31) == 0) tmp[threadIdx.x >> 5] = v;
   __syncthreads();
   float t = 0.f;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) t += tmp[w];
+  for (int w = 0; w < Q / 32; ++w) t += tmp[w];
   __syncthreads();
   return t;
 }
 
 struct Dims {
-  int b, T, H, P, nc;
+  int b, T, H, P, nc, NG, Hg;  // NG groups of Hg = H / NG heads
+  // element p of head h at position i of chunk c of batch row bb in the
+  // group-major layout (b nc NG, Q, Hg P), given its index `src` in x's
+  // layout (b, T, H, P), which it is with one group (kOne: the kernels'
+  // one-group build, whose index arithmetic is the layout of x's alone)
+  template <bool kOne>
+  __device__ __forceinline__ size_t gm(int Q, int bb, int c, int h, int i, int p,
+                                       size_t src) const {
+    if constexpr (kOne) return src;
+    const int g = h / Hg, k = h - g * Hg;
+    return ((((size_t)bb * nc + c) * NG + g) * Q + i) * ((size_t)Hg * P) + (size_t)k * P + p;
+  }
 };
 
 // One block a (batch row, chunk, head), one thread a position of the chunk:
 // s (the inclusive sum of dt A), e = exp(s_last), the mask M, x_h (x
-// head-major) and xw = x * w; with dy, also dy_h (dy head-major), dye = dy
-// exp(s) and dt^T.
+// head-major) and xw = x * w (group-major); with dy, also dy_h (dy
+// head-major), dye = dy exp(s) (group-major) and dt^T.
+template <int Q, bool kOne>
 __device__ __forceinline__ void prep(const Dims d, const bf16* x, const float* dt, const float* A,
                                      const float* G, float* s, float* e, bf16* M, bf16* xh,
                                      bf16* xw, const bf16* dy, bf16* dyh, bf16* dye, float* dtT) {
-  __shared__ float sh_s[kQ], sh_dt[kQ], tmp[kWarps];
+  constexpr int kWarps = Q / 32;
+  __shared__ float sh_s[Q], sh_dt[Q], tmp[kWarps];
   const int blk = blockIdx.x, h = blk % d.H, bc = blk / d.H, bb = bc / d.nc, c = bc % d.nc;
-  const int i = threadIdx.x, t = c * kQ + i;
+  const int i = threadIdx.x, t = c * Q + i;
   const float dti = dt[((size_t)bb * d.T + t) * d.H + h];
-  const float si = block_scan(dti * A[h], tmp);
+  const float si = block_scan<Q>(dti * A[h], tmp);
   sh_s[i] = si;
   sh_dt[i] = dti;
   const size_t row = ((size_t)bb * d.H + h) * d.T + t;
   s[row] = si;
   if (dtT) dtT[row] = dti;
   __syncthreads();
-  const float slast = sh_s[kQ - 1];
+  const float slast = sh_s[Q - 1];
   if (i == 0) e[((size_t)bb * d.H + h) * d.nc + c] = expf(slast);
   // the mask: thread i owns column j = i
-  const float* g = G + (size_t)bc * kQ * kQ;
-  bf16* m = M + (size_t)blk * kQ * kQ;
-  for (int r = 0; r < kQ; ++r) {
-    const float v = i <= r ? g[r * kQ + i] * __expf(sh_s[r] - si) * dti : 0.f;
-    st(m + r * kQ + i, v);
+  const float* g = G + (kOne ? (size_t)bc : (size_t)bc * d.NG + h / d.Hg) * Q * Q;
+  bf16* m = M + (size_t)blk * Q * Q;
+  for (int r = 0; r < Q; ++r) {
+    const float v = i <= r ? g[r * Q + i] * __expf(sh_s[r] - si) * dti : 0.f;
+    st(m + r * Q + i, v);
   }
   // x, dy head-major and weighted: a warp a row
   const int lane = i & 31, warp = i >> 5;
-  for (int r = warp; r < kQ; r += kWarps) {
+  for (int r = warp; r < Q; r += kWarps) {
     const float w = expf(slast - sh_s[r]) * sh_dt[r], es = expf(sh_s[r]);
-    const size_t src = (((size_t)bb * d.T + c * kQ + r) * d.H + h) * d.P;
-    const size_t dst = ((size_t)blk * kQ + r) * d.P;
+    const size_t src = (((size_t)bb * d.T + c * Q + r) * d.H + h) * d.P;
+    const size_t dst = ((size_t)blk * Q + r) * d.P;
+    const size_t gdst = d.gm<kOne>(Q, bb, c, h, r, 0, src);
     for (int p = lane; p < d.P; p += 32) {
       const bf16 v = x[src + p];
       xh[dst + p] = v;
-      st(xw + src + p, __bfloat162float(v) * w);
+      st(xw + gdst + p, __bfloat162float(v) * w);
       if (dy) {
         const bf16 g2 = dy[src + p];
         dyh[dst + p] = g2;
-        st(dye + src + p, __bfloat162float(g2) * es);
+        st(dye + gdst + p, __bfloat162float(g2) * es);
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(kQ) ssd_fwd_prep_kernel(Dims d, const bf16* x, const float* dt,
-                                                          const float* A, const float* G, float* s,
-                                                          float* e, bf16* M, bf16* xh, bf16* xw) {
-  prep(d, x, dt, A, G, s, e, M, xh, xw, nullptr, nullptr, nullptr, nullptr);
+template <int Q, bool kOne>
+__global__ void __launch_bounds__(Q) ssd_fwd_prep_kernel(Dims d, const bf16* x, const float* dt,
+                                                         const float* A, const float* G, float* s,
+                                                         float* e, bf16* M, bf16* xh, bf16* xw) {
+  prep<Q, kOne>(d, x, dt, A, G, s, e, M, xh, xw, nullptr, nullptr, nullptr, nullptr);
 }
 
-__global__ void __launch_bounds__(kQ) ssd_bwd_prep_kernel(Dims d, const bf16* x, const float* dt,
-                                                          const float* A, const float* G, float* s,
-                                                          float* e, bf16* M, bf16* xh, bf16* xw,
-                                                          const bf16* dy, bf16* dyh, bf16* dye,
-                                                          float* dtT) {
-  prep(d, x, dt, A, G, s, e, M, xh, xw, dy, dyh, dye, dtT);
+template <int Q, bool kOne>
+__global__ void __launch_bounds__(Q) ssd_bwd_prep_kernel(Dims d, const bf16* x, const float* dt,
+                                                         const float* A, const float* G, float* s,
+                                                         float* e, bf16* M, bf16* xh, bf16* xw,
+                                                         const bf16* dy, bf16* dyh, bf16* dye,
+                                                         float* dtT) {
+  prep<Q, kOne>(d, x, dt, A, G, s, e, M, xh, xw, dy, dyh, dye, dtT);
 }
 
 // The state pass: one thread an element k of a (batch row, head)'s (P, N)
@@ -199,6 +225,7 @@ __global__ void __launch_bounds__(kPass) ssd_bwd_state_pass_kernel(Dims d, int P
 }
 
 // y = y_diag + exp(s) y_off + D x, one thread an element, in y's order.
+template <int Q, bool kOne>
 __global__ void __launch_bounds__(256) ssd_fwd_combine_kernel(Dims d, const bf16* ydiag,
                                                               const bf16* yoff, const float* s,
                                                               const bf16* x, const float* D,
@@ -210,10 +237,10 @@ __global__ void __launch_bounds__(256) ssd_fwd_combine_kernel(Dims d, const bf16
     const size_t rest = idx / d.P;
     const int h = rest % d.H;
     const size_t bt = rest / d.H;
-    const int t = bt % d.T, bb = bt / d.T, c = t / kQ, i = t % kQ;
-    const size_t di = ((((size_t)bb * d.nc + c) * d.H + h) * kQ + i) * d.P + p;
+    const int t = bt % d.T, bb = bt / d.T, c = t / Q, i = t % Q;
+    const size_t di = ((((size_t)bb * d.nc + c) * d.H + h) * Q + i) * d.P + p;
     const float es = expf(s[((size_t)bb * d.H + h) * d.T + t]);
-    st(y + idx, ld(ydiag + di) + es * ld(yoff + idx) + D[h] * ld(x + idx));
+    st(y + idx, ld(ydiag + di) + es * ld(yoff + d.gm<kOne>(Q, bb, c, h, i, p, idx)) + D[h] * ld(x + idx));
   }
 }
 
@@ -249,34 +276,38 @@ __global__ void __launch_bounds__(kPass) ssd_bwd_reverse_pass_kernel(Dims d, int
   }
 }
 
-// The mask's gradient.  One block a (batch row, chunk, kRows rows), one
-// thread a column j, looping over the heads: P = dM G exp(s_i - s_j) (j <=
-// i); dG[i, j] = sum_h dM exp(s_i - s_j) dt_j, ds_i += sum_j P dt_j, ds_j -=
-// dt_j sum_i P, ddt_j += sum_i P.
-__global__ void __launch_bounds__(kQ) ssd_bwd_mask_kernel(Dims d, const bf16* dM, const float* G,
-                                                          const float* s, const float* dtT,
-                                                          float* dG, float* ds, float* ddt_acc) {
+// The mask's gradient.  One block a (batch row, chunk, group, kRows rows),
+// one thread a column j, looping over the group's heads: P = dM G exp(s_i -
+// s_j) (j <= i); dG[i, j] = sum_h dM exp(s_i - s_j) dt_j, ds_i += sum_j P
+// dt_j, ds_j -= dt_j sum_i P, ddt_j += sum_i P.
+template <int Q, bool kOne>
+__global__ void __launch_bounds__(Q) ssd_bwd_mask_kernel(Dims d, const bf16* dM, const float* G,
+                                                         const float* s, const float* dtT,
+                                                         float* dG, float* ds, float* ddt_acc) {
   __shared__ float sh_si[kRows], sh_row[kRows];
-  const int nrb = kQ / kRows;
-  const int bc = blockIdx.x / nrb, i0 = (blockIdx.x % nrb) * kRows, bb = bc / d.nc, c = bc % d.nc;
+  constexpr int nrb = Q / kRows;
+  const int bcg = blockIdx.x / nrb, i0 = (blockIdx.x % nrb) * kRows;
+  const int bc = kOne ? bcg : bcg / d.NG, grp = kOne ? 0 : bcg % d.NG;
+  const int bb = bc / d.nc, c = bc % d.nc;
   const int j = threadIdx.x, lane = j & 31, warp0 = j & ~31;
-  const float* g = G + (size_t)bc * kQ * kQ;
+  const float* g = G + (size_t)bcg * Q * Q;
   float gij[kRows], acc[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    gij[r] = g[(size_t)(i0 + r) * kQ + j];
+    gij[r] = g[(size_t)(i0 + r) * Q + j];
     acc[r] = 0.f;
   }
   const bool live = j <= i0 + kRows - 1;  // some row of the block is at or below j's diagonal
-  for (int h = 0; h < d.H; ++h) {
-    const size_t row0 = ((size_t)bb * d.H + h) * d.T + (size_t)c * kQ;
+  const int h0 = kOne ? 0 : grp * d.Hg, h1 = kOne ? d.H : h0 + d.Hg;
+  for (int h = h0; h < h1; ++h) {
+    const size_t row0 = ((size_t)bb * d.H + h) * d.T + (size_t)c * Q;
     if (j < kRows) {
       sh_si[j] = s[row0 + i0 + j];
       sh_row[j] = 0.f;
     }
     __syncthreads();
     const float sj = s[row0 + j], dtj = dtT[row0 + j];
-    const bf16* m = dM + ((size_t)bc * d.H + h) * kQ * kQ;
+    const bf16* m = dM + ((size_t)bc * d.H + h) * Q * Q;
     float col = 0.f;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
@@ -284,7 +315,7 @@ __global__ void __launch_bounds__(kQ) ssd_bwd_mask_kernel(Dims d, const bf16* dM
       if (warp0 > i) continue;  // the whole warp lies above the diagonal
       float rowv = 0.f;
       if (j <= i) {
-        const float me = ld(m + (size_t)i * kQ + j) * __expf(sh_si[r] - sj);
+        const float me = ld(m + (size_t)i * Q + j) * __expf(sh_si[r] - sj);
         acc[r] += me * dtj;
         const float pij = me * gij[r];
         col += pij;
@@ -301,9 +332,9 @@ __global__ void __launch_bounds__(kQ) ssd_bwd_mask_kernel(Dims d, const bf16* dM
     }
     __syncthreads();
   }
-  float* out = dG + (size_t)bc * kQ * kQ;
+  float* out = dG + (size_t)bcg * Q * Q;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) out[(size_t)(i0 + r) * kQ + j] = acc[r];
+  for (int r = 0; r < kRows; ++r) out[(size_t)(i0 + r) * Q + j] = acc[r];
 }
 
 // The finish.  One block a (batch row, chunk, head).  A warp a row: dx =
@@ -312,29 +343,32 @@ __global__ void __launch_bounds__(kQ) ssd_bwd_mask_kernel(Dims d, const bf16* dM
 // the y_off term, -w dw, and at the chunk's last position sum w dw and e_c
 // de_c; the gradient of a = dt A is the reverse inclusive sum of ds; ddt =
 // ddt_acc + exp(s_last - s) dw + A da, dA += sum dt da.
-__global__ void __launch_bounds__(kQ) ssd_bwd_finish_kernel(
+template <int Q, bool kOne>
+__global__ void __launch_bounds__(Q) ssd_bwd_finish_kernel(
     Dims d, const bf16* dxdiag, const bf16* dxw, const bf16* dy, const bf16* x, const bf16* yoff,
     const float* s, const float* dtT, const float* e, const float* de, const float* A,
     const float* D, const float* ds, const float* ddt_acc, bf16* dx, float* ddt, float* dA,
     float* dD) {
-  __shared__ float sh_s[kQ], sh_dw[kQ], sh_yo[kQ], tmp[kWarps];
+  constexpr int kWarps = Q / 32;
+  __shared__ float sh_s[Q], sh_dw[Q], sh_yo[Q], tmp[kWarps];
   const int blk = blockIdx.x, h = blk % d.H, bc = blk / d.H, bb = bc / d.nc, c = bc % d.nc;
   const int i = threadIdx.x, lane = i & 31, warp = i >> 5;
-  const size_t row0 = ((size_t)bb * d.H + h) * d.T + (size_t)c * kQ;
+  const size_t row0 = ((size_t)bb * d.H + h) * d.T + (size_t)c * Q;
   sh_s[i] = s[row0 + i];
   __syncthreads();
-  const float slast = sh_s[kQ - 1], Dh = D[h];
+  const float slast = sh_s[Q - 1], Dh = D[h];
   float dDp = 0.f;
-  for (int r = warp; r < kQ; r += kWarps) {
+  for (int r = warp; r < Q; r += kWarps) {
     const float w = expf(slast - sh_s[r]) * dtT[row0 + r];
-    const size_t src = (((size_t)bb * d.T + c * kQ + r) * d.H + h) * d.P;
-    const size_t hm = ((size_t)blk * kQ + r) * d.P;
+    const size_t src = (((size_t)bb * d.T + c * Q + r) * d.H + h) * d.P;
+    const size_t hm = ((size_t)blk * Q + r) * d.P;
+    const size_t gsrc = d.gm<kOne>(Q, bb, c, h, r, 0, src);
     float dw = 0.f, yo = 0.f;
     for (int p = lane; p < d.P; p += 32) {
-      const float g = ld(dy + src + p), xv = ld(x + src + p), gw = ld(dxw + src + p);
+      const float g = ld(dy + src + p), xv = ld(x + src + p), gw = ld(dxw + gsrc + p);
       st(dx + src + p, ld(dxdiag + hm + p) + w * gw + Dh * g);
       dw += xv * gw;
-      yo += g * ld(yoff + src + p);
+      yo += g * ld(yoff + gsrc + p);
       dDp += g * xv;
     }
     dw = warp_sum(dw);
@@ -345,26 +379,34 @@ __global__ void __launch_bounds__(kQ) ssd_bwd_finish_kernel(
     }
   }
   __syncthreads();
-  const float dDsum = block_sum(dDp, tmp);
+  const float dDsum = block_sum<Q>(dDp, tmp);
   const float si = sh_s[i], dti = dtT[row0 + i], decay = expf(slast - si), wi = decay * dti;
   const float dwi = sh_dw[i];
   float dsi = ds[row0 + i] + sh_yo[i] - wi * dwi;
-  const float last = block_sum(wi * dwi, tmp);
-  if (i == kQ - 1) dsi += last + expf(slast) * de[((size_t)bb * d.H + h) * d.nc + c];
-  const float incl = block_scan(dsi, tmp);
-  const float total = block_sum(dsi, tmp);
+  const float last = block_sum<Q>(wi * dwi, tmp);
+  if (i == Q - 1) dsi += last + expf(slast) * de[((size_t)bb * d.H + h) * d.nc + c];
+  const float incl = block_scan<Q>(dsi, tmp);
+  const float total = block_sum<Q>(dsi, tmp);
   const float da = total - incl + dsi;  // sum of ds over positions >= i
-  ddt[((size_t)bb * d.T + (size_t)c * kQ + i) * d.H + h] =
+  ddt[((size_t)bb * d.T + (size_t)c * Q + i) * d.H + h] =
       ddt_acc[row0 + i] + decay * dwi + A[h] * da;
-  const float dAsum = block_sum(dti * da, tmp);
+  const float dAsum = block_sum<Q>(dti * da, tmp);
   if (i == 0) {
     atomicAdd(dA + h, dAsum);
     atomicAdd(dD + h, dDsum);
   }
 }
 
-bool dims_ok(const Dims& d) {
-  return d.b > 0 && d.H > 0 && d.P > 0 && d.nc > 0 && d.T == d.nc * kQ;
+bool chunk_ok(int Q) { return Q == 128 || Q == 256; }
+
+// The dims of a call, or nc = 0 where the kernels do not take them.
+Dims dims_of(int b, int T, int H, int P, int NG, int Q) {
+  Dims d{b, T, H, P, 0, NG, 0};
+  if (chunk_ok(Q) && b > 0 && H > 0 && P > 0 && NG > 0 && H % NG == 0 && T > 0 && T % Q == 0) {
+    d.nc = T / Q;
+    d.Hg = H / NG;
+  }
+  return d;
 }
 
 int blocks_for(size_t n) {
@@ -372,46 +414,59 @@ int blocks_for(size_t n) {
   return (int)(b < 132 * 32 ? b : 132 * 32);
 }
 
+// Launch `kernel<Q, one group>` for the chunk Q (128 or 256) and d's groups.
+#define HH_BY_CHUNK(Q, kernel, grid, block, stream, d, ...)                               \
+  do {                                                                                  \
+    if ((Q) == 128 && (d).NG == 1)                                                      \
+      kernel<128, true><<<(grid), (block), 0, (stream)>>>((d), __VA_ARGS__);            \
+    else if ((Q) == 128)                                                                \
+      kernel<128, false><<<(grid), (block), 0, (stream)>>>((d), __VA_ARGS__);           \
+    else if ((d).NG == 1)                                                               \
+      kernel<256, true><<<(grid), (block), 0, (stream)>>>((d), __VA_ARGS__);            \
+    else                                                                                \
+      kernel<256, false><<<(grid), (block), 0, (stream)>>>((d), __VA_ARGS__);           \
+  } while (0)
+
 }  // namespace
 
 extern "C" {
 
-// The chunk these kernels take (the wrapper refuses any other).
-int hh_ssd_chunk() { return kQ; }
+// 1 where the kernels take a chunk of Q positions (128 or 256), else 0.
+int hh_ssd_chunk_ok(int Q) { return chunk_ok(Q) ? 1 : 0; }
 
-// The forward's prep: s, e, M, x_h, xw (layouts above).  Returns
-// cudaGetLastError() of the launch.
-int hh_ssd_fwd_prep(int b, int T, int H, int P, const void* x, const float* dt, const float* A,
-                    const float* G, float* s, float* e, void* M, void* xh, void* xw,
-                    void* stream) {
-  const Dims d{b, T, H, P, T / kQ};
-  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
-  ssd_fwd_prep_kernel<<<b * d.nc * H, kQ, 0, static_cast<cudaStream_t>(stream)>>>(
-      d, static_cast<const bf16*>(x), dt, A, G, s, e, static_cast<bf16*>(M),
-      static_cast<bf16*>(xh), static_cast<bf16*>(xw));
+// The forward's prep: s, e, M, x_h, xw (layouts above), for NG groups of
+// heads and chunks of Q.  Returns cudaGetLastError() of the launch.
+int hh_ssd_fwd_prep(int b, int T, int H, int P, int NG, int Q, const void* x, const float* dt,
+                    const float* A, const float* G, float* s, float* e, void* M, void* xh,
+                    void* xw, void* stream) {
+  const Dims d = dims_of(b, T, H, P, NG, Q);
+  if (!d.nc) return (int)cudaErrorInvalidValue;
+  HH_BY_CHUNK(Q, ssd_fwd_prep_kernel, b * d.nc * H, Q, static_cast<cudaStream_t>(stream), d,
+              static_cast<const bf16*>(x), dt, A, G, s, e, static_cast<bf16*>(M),
+              static_cast<bf16*>(xh), static_cast<bf16*>(xw));
   return (int)cudaGetLastError();
 }
 
 // The backward's prep: the forward's, and dy_h, dye, dt^T.
-int hh_ssd_bwd_prep(int b, int T, int H, int P, const void* x, const float* dt, const float* A,
-                    const float* G, float* s, float* e, void* M, void* xh, void* xw,
-                    const void* dy, void* dyh, void* dye, float* dtT, void* stream) {
-  const Dims d{b, T, H, P, T / kQ};
-  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
-  ssd_bwd_prep_kernel<<<b * d.nc * H, kQ, 0, static_cast<cudaStream_t>(stream)>>>(
-      d, static_cast<const bf16*>(x), dt, A, G, s, e, static_cast<bf16*>(M),
-      static_cast<bf16*>(xh), static_cast<bf16*>(xw), static_cast<const bf16*>(dy),
-      static_cast<bf16*>(dyh), static_cast<bf16*>(dye), dtT);
+int hh_ssd_bwd_prep(int b, int T, int H, int P, int NG, int Q, const void* x, const float* dt,
+                    const float* A, const float* G, float* s, float* e, void* M, void* xh,
+                    void* xw, const void* dy, void* dyh, void* dye, float* dtT, void* stream) {
+  const Dims d = dims_of(b, T, H, P, NG, Q);
+  if (!d.nc) return (int)cudaErrorInvalidValue;
+  HH_BY_CHUNK(Q, ssd_bwd_prep_kernel, b * d.nc * H, Q, static_cast<cudaStream_t>(stream), d,
+              static_cast<const bf16*>(x), dt, A, G, s, e, static_cast<bf16*>(M),
+              static_cast<bf16*>(xh), static_cast<bf16*>(xw), static_cast<const bf16*>(dy),
+              static_cast<bf16*>(dyh), static_cast<bf16*>(dye), dtT);
   return (int)cudaGetLastError();
 }
 
 // The state pass over the chunks' float32 states S (b nc, H P, N) into the
 // float32 entering states Hin and their bf16 copy Hb; `backward` != 0
 // launches the backward's recompute (its own kernel name, for the profile).
-int hh_ssd_state_pass(int b, int T, int H, int P, int N, const float* S, const float* e,
+int hh_ssd_state_pass(int b, int T, int H, int P, int N, int Q, const float* S, const float* e,
                       float* Hin, void* Hb, int backward, void* stream) {
-  const Dims d{b, T, H, P, T / kQ};
-  if (!dims_ok(d) || N <= 0) return (int)cudaErrorInvalidValue;
+  const Dims d = dims_of(b, T, H, P, 1, Q);
+  if (!d.nc || N <= 0) return (int)cudaErrorInvalidValue;
   const int PN = P * N;
   const dim3 grid(b * H, (PN + kPass - 1) / kPass);
   auto st_ = static_cast<cudaStream_t>(stream);
@@ -424,22 +479,23 @@ int hh_ssd_state_pass(int b, int T, int H, int P, int N, const float* S, const f
 }
 
 // y = y_diag + exp(s) y_off + D x.
-int hh_ssd_fwd_combine(int b, int T, int H, int P, const void* ydiag, const void* yoff,
-                       const float* s, const void* x, const float* D, void* y, void* stream) {
-  const Dims d{b, T, H, P, T / kQ};
-  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
-  ssd_fwd_combine_kernel<<<blocks_for((size_t)b * T * H * P), 256, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      d, static_cast<const bf16*>(ydiag), static_cast<const bf16*>(yoff), s,
-      static_cast<const bf16*>(x), D, static_cast<bf16*>(y));
+int hh_ssd_fwd_combine(int b, int T, int H, int P, int NG, int Q, const void* ydiag,
+                       const void* yoff, const float* s, const void* x, const float* D, void* y,
+                       void* stream) {
+  const Dims d = dims_of(b, T, H, P, NG, Q);
+  if (!d.nc) return (int)cudaErrorInvalidValue;
+  HH_BY_CHUNK(Q, ssd_fwd_combine_kernel, blocks_for((size_t)b * T * H * P), 256,
+              static_cast<cudaStream_t>(stream), d, static_cast<const bf16*>(ydiag),
+              static_cast<const bf16*>(yoff), s, static_cast<const bf16*>(x), D,
+              static_cast<bf16*>(y));
   return (int)cudaGetLastError();
 }
 
 // The reverse state pass: dS and de (zeroed by the caller, summed into).
-int hh_ssd_bwd_reverse_pass(int b, int T, int H, int P, int N, const void* dHloc, const float* Hin,
-                            const float* e, void* dS, float* de, void* stream) {
-  const Dims d{b, T, H, P, T / kQ};
-  if (!dims_ok(d) || N <= 0) return (int)cudaErrorInvalidValue;
+int hh_ssd_bwd_reverse_pass(int b, int T, int H, int P, int N, int Q, const void* dHloc,
+                            const float* Hin, const float* e, void* dS, float* de, void* stream) {
+  const Dims d = dims_of(b, T, H, P, 1, Q);
+  if (!d.nc || N <= 0) return (int)cudaErrorInvalidValue;
   const int PN = P * N;
   const dim3 grid(b * H, (PN + kPass - 1) / kPass);
   ssd_bwd_reverse_pass_kernel<<<grid, kPass, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -448,28 +504,32 @@ int hh_ssd_bwd_reverse_pass(int b, int T, int H, int P, int N, const void* dHloc
   return (int)cudaGetLastError();
 }
 
-// The mask's gradient: dG, and ds and ddt_acc (zeroed by the caller, summed into).
-int hh_ssd_bwd_mask(int b, int T, int H, int P, const void* dM, const float* G, const float* s,
-                    const float* dtT, float* dG, float* ds, float* ddt_acc, void* stream) {
-  const Dims d{b, T, H, P, T / kQ};
-  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
-  ssd_bwd_mask_kernel<<<b * d.nc * (kQ / kRows), kQ, 0, static_cast<cudaStream_t>(stream)>>>(
-      d, static_cast<const bf16*>(dM), G, s, dtT, dG, ds, ddt_acc);
+// The mask's gradient: dG (b nc NG, Q, Q), and ds and ddt_acc (zeroed by
+// the caller, summed into).
+int hh_ssd_bwd_mask(int b, int T, int H, int P, int NG, int Q, const void* dM, const float* G,
+                    const float* s, const float* dtT, float* dG, float* ds, float* ddt_acc,
+                    void* stream) {
+  const Dims d = dims_of(b, T, H, P, NG, Q);
+  if (!d.nc) return (int)cudaErrorInvalidValue;
+  HH_BY_CHUNK(Q, ssd_bwd_mask_kernel, b * d.nc * NG * (Q / kRows), Q,
+              static_cast<cudaStream_t>(stream), d, static_cast<const bf16*>(dM), G, s, dtT, dG,
+              ds, ddt_acc);
   return (int)cudaGetLastError();
 }
 
 // The finish: dx, ddt, and dA and dD (zeroed by the caller, summed into).
-int hh_ssd_bwd_finish(int b, int T, int H, int P, const void* dxdiag, const void* dxw,
-                      const void* dy, const void* x, const void* yoff, const float* s,
-                      const float* dtT, const float* e, const float* de, const float* A,
-                      const float* D, const float* ds, const float* ddt_acc, void* dx, float* ddt,
-                      float* dA, float* dD, void* stream) {
-  const Dims d{b, T, H, P, T / kQ};
-  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
-  ssd_bwd_finish_kernel<<<b * d.nc * H, kQ, 0, static_cast<cudaStream_t>(stream)>>>(
-      d, static_cast<const bf16*>(dxdiag), static_cast<const bf16*>(dxw),
-      static_cast<const bf16*>(dy), static_cast<const bf16*>(x), static_cast<const bf16*>(yoff),
-      s, dtT, e, de, A, D, ds, ddt_acc, static_cast<bf16*>(dx), ddt, dA, dD);
+int hh_ssd_bwd_finish(int b, int T, int H, int P, int NG, int Q, const void* dxdiag,
+                      const void* dxw, const void* dy, const void* x, const void* yoff,
+                      const float* s, const float* dtT, const float* e, const float* de,
+                      const float* A, const float* D, const float* ds, const float* ddt_acc,
+                      void* dx, float* ddt, float* dA, float* dD, void* stream) {
+  const Dims d = dims_of(b, T, H, P, NG, Q);
+  if (!d.nc) return (int)cudaErrorInvalidValue;
+  HH_BY_CHUNK(Q, ssd_bwd_finish_kernel, b * d.nc * H, Q, static_cast<cudaStream_t>(stream), d,
+              static_cast<const bf16*>(dxdiag), static_cast<const bf16*>(dxw),
+              static_cast<const bf16*>(dy), static_cast<const bf16*>(x),
+              static_cast<const bf16*>(yoff), s, dtT, e, de, A, D, ds, ddt_acc,
+              static_cast<bf16*>(dx), ddt, dA, dD);
   return (int)cudaGetLastError();
 }
 

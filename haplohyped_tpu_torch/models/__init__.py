@@ -1,6 +1,7 @@
 from haplohyped_tpu_torch.models.enformer import Enformer, EnformerConfig
 from haplohyped_tpu_torch.models.granite_hybrid import GraniteHybrid, GraniteHybridConfig
 from haplohyped_tpu_torch.models.haploformer import HaploFormer, HaploFormerConfig
+from haplohyped_tpu_torch.models.nemotron_h import NemotronH, NemotronHConfig
 from haplohyped_tpu_torch.models.train import (
     TrainState,
     create_train_state,
@@ -15,6 +16,8 @@ __all__ = [
     "GraniteHybridConfig",
     "HaploFormer",
     "HaploFormerConfig",
+    "NemotronH",
+    "NemotronHConfig",
     "TrainState",
     "create_train_state",
     "loss_fn",

@@ -484,6 +484,10 @@ class Enformer(nn.Module):
         return torch.optim.Adam(self.parameters(), lr=learning_rate, betas=(0.9, 0.999),
                                 eps=1e-8, weight_decay=0.0)
 
+    def after_step(self) -> None:
+        """Nothing besides the parameters and the batch norms' moving
+        averages (which the forward moves) changes after a step."""
+
     def dropout_generator(self, seed) -> torch.Generator:
         """The generator the dropout draws from, on the model's device,
         seeded from ``seed`` (an int or a generator's initial seed)."""

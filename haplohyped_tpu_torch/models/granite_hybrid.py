@@ -52,21 +52,25 @@ only) and ``clip_global_norm``.  Spans (``core/profiling.py``):
 
 from __future__ import annotations
 
-import contextlib
-import math
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from haplohyped_tpu_torch.core.config import resolve_device
 from haplohyped_tpu_torch.core.profiling import annotate
+from haplohyped_tpu_torch.models.hybrid_layers import (  # noqa: F401 (re-exported)
+    Attention,
+    ChunkedHeadLoss,
+    Linear,
+    Mamba2Mixer,
+    MambaShape,
+    RMSNorm,
+    _normal,
+)
 from haplohyped_tpu_torch.ops.rms_norm import load as load_rms_norm
-from haplohyped_tpu_torch.ops.rms_norm import rms_norm
 from haplohyped_tpu_torch.ops.ssd_scan import load as load_ssd_scan
-from haplohyped_tpu_torch.ops.ssd_scan import ssd_scan
 
 #: the published 40 layers' first period: attention at index 5
 PERIOD = ("mamba",) * 5 + ("attention",) + ("mamba",) * 4
@@ -110,7 +114,8 @@ class GraniteHybridConfig:
         if set(self.layer_types) - {"mamba", "attention"}:
             raise ValueError(f"unknown layer types in {self.layer_types}")
         if self.mamba_n_groups != 1:
-            raise ValueError("the scan takes one group of B and C (mamba_n_groups=1)")
+            raise ValueError("the Granite hybrid takes its published one group of B and C "
+                             "(mamba_n_groups=1)")
         if self.mamba_expand * self.hidden_size != self.mamba_n_heads * self.mamba_d_head:
             raise ValueError("mamba_expand * hidden_size must be mamba_n_heads * mamba_d_head")
         if self.hidden_size % self.num_attention_heads \
@@ -131,114 +136,17 @@ class GraniteHybridConfig:
     def conv_dim(self) -> int:
         return self.mamba_width + 2 * self.mamba_n_groups * self.mamba_d_state
 
+    @property
+    def mamba(self) -> MambaShape:
+        return MambaShape(self.hidden_size, self.mamba_n_heads, self.mamba_d_head,
+                          self.mamba_d_state, self.mamba_n_groups, self.mamba_d_conv,
+                          self.mamba_chunk_size, self.rms_norm_eps, self.compute_dtype)
+
     def create_model(self, sample_batch: tuple, seed, device, mesh=None) -> "GraniteHybrid":
         if mesh is not None:
             raise ValueError("the hybrid model trains on one device: no tensor-parallel rules "
                              "cut its layers")
         return GraniteHybrid(self, seed, device=device)
-
-
-def _normal(shape, std: float, g: torch.Generator) -> torch.Tensor:
-    return torch.randn(shape, generator=g, device=g.device) * std
-
-
-class Linear(nn.Module):
-    """``y = x W^T`` with a float32 ``weight`` ``(out, in)``, in the compute dtype."""
-
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, g: torch.Generator):
-        super().__init__()
-        self.dtype = dtype
-        self.weight = nn.Parameter(_normal((d_out, d_in), 0.02, g))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
-
-
-class RMSNorm(nn.Module):
-    """``u / sqrt(mean(u^2) + eps) * weight``, ``u = x * silu(gate)`` where
-    a gate is given and ``x`` where not (``ops/rms_norm.py``): statistics
-    and weight in float32, the result in ``x``'s dtype."""
-
-    def __init__(self, d: int, eps: float):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(d))
-
-    def forward(self, x: torch.Tensor, gate: torch.Tensor | None = None) -> torch.Tensor:
-        return rms_norm(x, self.weight, self.eps, gate)
-
-
-class Mamba2Mixer(nn.Module):
-    """The Mamba-2 mixer (module docstring), on ``(n, T, hidden)``."""
-
-    def __init__(self, cfg: GraniteHybridConfig, g: torch.Generator):
-        super().__init__()
-        self.cfg, dt = cfg, cfg.compute_dtype
-        H, W = cfg.mamba_n_heads, cfg.mamba_width
-        self.in_proj = Linear(cfg.hidden_size, W + cfg.conv_dim + H, dt, g)
-        self.conv1d = nn.Module()
-        self.conv1d.weight = nn.Parameter(
-            _normal((cfg.conv_dim, 1, cfg.mamba_d_conv), 1 / math.sqrt(cfg.mamba_d_conv), g))
-        self.conv1d.bias = nn.Parameter(torch.zeros(cfg.conv_dim))
-        # Mamba-2's initialisation: dt log-uniform in [1e-3, 1e-1] (floor
-        # 1e-4) through softplus's inverse; A uniform in [1, 16]; D = 1
-        u = torch.rand(H, generator=g, device=g.device)
-        dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3)).clamp_min(1e-4)
-        self.dt_bias = nn.Parameter(dt0 + torch.log(-torch.expm1(-dt0)))
-        self.A_log = nn.Parameter(torch.log(1 + 15 * torch.rand(H, generator=g, device=g.device)))
-        self.D = nn.Parameter(torch.ones(H))
-        self.norm = RMSNorm(W, cfg.rms_norm_eps)
-        self.out_proj = Linear(W, cfg.hidden_size, dt, g)
-
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        cfg, dt_ = self.cfg, self.cfg.compute_dtype
-        n, T, _ = h.shape
-        H, P, N, W = cfg.mamba_n_heads, cfg.mamba_d_head, cfg.mamba_d_state, cfg.mamba_width
-        z, xbc, dt = self.in_proj(h).split([W, cfg.conv_dim, H], dim=-1)
-        k = cfg.mamba_d_conv
-        xbc = F.conv1d(xbc.transpose(1, 2), self.conv1d.weight.to(dt_),
-                       self.conv1d.bias.to(dt_), padding=k - 1, groups=cfg.conv_dim)[..., :T]
-        xbc = F.silu(xbc).transpose(1, 2)  # (n, T, conv_dim)
-        x = xbc[..., :W].reshape(n, T, H, P).contiguous()
-        B = xbc[..., W: W + N].contiguous()
-        C = xbc[..., W + N:].contiguous()
-        dt = F.softplus(dt.float() + self.dt_bias)
-        y = ssd_scan(x, dt, -torch.exp(self.A_log), B, C, self.D, cfg.mamba_chunk_size)
-        # the norm takes rows one stride apart: z's are read in place from
-        # in_proj's output; y's are copied where the scan cut its padding off
-        y = self.norm(y.reshape(n * T, W), gate=z.reshape(n * T, W))
-        return self.out_proj(y.view(n, T, W))
-
-
-class Attention(nn.Module):
-    """Causal grouped-query attention with no position encoding, on
-    ``(n, T, hidden)``."""
-
-    def __init__(self, cfg: GraniteHybridConfig, g: torch.Generator):
-        super().__init__()
-        self.cfg, dt = cfg, cfg.compute_dtype
-        d, hd = cfg.hidden_size, cfg.hidden_size // cfg.num_attention_heads
-        self.q_proj = Linear(d, cfg.num_attention_heads * hd, dt, g)
-        self.k_proj = Linear(d, cfg.num_key_value_heads * hd, dt, g)
-        self.v_proj = Linear(d, cfg.num_key_value_heads * hd, dt, g)
-        self.o_proj = Linear(cfg.num_attention_heads * hd, d, dt, g)
-
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        n, T, d = h.shape
-        hd = d // cfg.num_attention_heads
-
-        def heads(t, k):
-            return t.view(n, T, k, hd).transpose(1, 2)
-
-        q = heads(self.q_proj(h), cfg.num_attention_heads)
-        k = heads(self.k_proj(h), cfg.num_key_value_heads)
-        v = heads(self.v_proj(h), cfg.num_key_value_heads)
-        flash = sdpa_kernel(SDPBackend.FLASH_ATTENTION) if h.is_cuda else contextlib.nullcontext()
-        with flash:
-            a = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                               scale=cfg.attention_multiplier, enable_gqa=True)
-        return self.o_proj(a.transpose(1, 2).reshape(n, T, d))
 
 
 class SharedMLP(nn.Module):
@@ -262,9 +170,11 @@ class Layer(nn.Module):
         eps = cfg.rms_norm_eps
         self.input_layernorm = RMSNorm(cfg.hidden_size, eps)
         if kind == "mamba":
-            self.mamba = Mamba2Mixer(cfg, g)
+            self.mamba = Mamba2Mixer(cfg.mamba, g)
         else:
-            self.self_attn = Attention(cfg, g)
+            d, heads = cfg.hidden_size, cfg.num_attention_heads
+            self.self_attn = Attention(d, heads, cfg.num_key_value_heads, d // heads,
+                                       cfg.attention_multiplier, cfg.compute_dtype, g)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps)
         self.shared_mlp = SharedMLP(cfg, g)
 
@@ -278,46 +188,6 @@ class Layer(nn.Module):
                 h = h + self.r * self.self_attn(x)
         with annotate("hh.granite.mlp"):
             return h + self.r * self.shared_mlp(self.post_attention_layernorm(h))
-
-
-class ChunkedHeadLoss(torch.autograd.Function):
-    """The mean cross-entropy of ``h W^T / scale`` against ``targets``, over
-    ``chunk`` rows at a time: ``h`` ``(n, d)`` in the compute dtype, the
-    float32 table ``W`` ``(V, d)``, int64 ``targets`` ``(n,)``.  Each chunk's
-    logits are a product in ``h``'s dtype taken to float32 (float64 for a
-    float64 ``h``) for the log-sum-exp; where a gradient is wanted the forward also takes the
-    chunk's gradients (the softmax less the target's one-hot), so no logits
-    are kept or recomputed: the backward scales the saved ``dh`` and ``dW``
-    by the loss's gradient."""
-
-    @staticmethod
-    def forward(ctx, h, weight, targets, scale: float, chunk: int):
-        n = h.shape[0]
-        w, wide = weight.to(h.dtype), torch.promote_types(h.dtype, torch.float32)
-        want = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
-        total = torch.zeros((), dtype=wide, device=h.device)
-        dh = torch.empty_like(h) if want else None
-        dW = torch.zeros_like(weight) if want else None
-        for a in range(0, n, chunk):
-            hc, tc = h[a: a + chunk], targets[a: a + chunk]
-            logits = (hc @ w.t()).to(wide).mul_(1.0 / scale)
-            lse = torch.logsumexp(logits, dim=-1)
-            total += (lse - logits.gather(1, tc[:, None])[:, 0]).sum()
-            if want:
-                p = logits.sub_(lse[:, None]).exp_()
-                p[torch.arange(p.shape[0], device=p.device), tc] -= 1.0
-                g = p.mul_(1.0 / (scale * n)).to(h.dtype)
-                dh[a: a + chunk] = g @ w
-                dW += (g.t() @ hc).to(dW.dtype)
-        if want:
-            ctx.save_for_backward(dh, dW)
-        return total / n
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad):
-        dh, dW = ctx.saved_tensors
-        return dh * grad.to(dh.dtype), dW * grad, None, None, None
 
 
 class GraniteHybrid(nn.Module):
@@ -392,4 +262,7 @@ class GraniteHybrid(nn.Module):
 
     def dropout_generator(self, seed) -> None:
         return None
+
+    def after_step(self) -> None:
+        """Nothing besides the parameters moves after a step."""
 

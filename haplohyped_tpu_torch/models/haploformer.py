@@ -366,6 +366,9 @@ class HaploFormer(nn.Module):
     def dropout_generator(self, seed) -> None:
         return None
 
+    def after_step(self) -> None:
+        """Nothing besides the parameters moves after a step."""
+
 
 def train_flops_per_step(cfg: HaploFormerConfig, B: int, L: int) -> int:
     """Matmul and convolution FLOPs (two a multiply-add) of one train step

@@ -3,15 +3,18 @@ the training loop over the sampler: the JAX package's ``models/train.py`` in
 PyTorch, for every model of the port.
 
 A train state's model is the one its config names (``cfg.create_model``):
-HaploFormer, Enformer or the Granite hybrid.  Each model owns its training:
+HaploFormer, Enformer, the Granite hybrid or the Nemotron-H hybrid.  Each model owns its training:
 ``model.loss(hap1, hap2, n_variants, targets, generator)``,
 ``model.make_optimizer(learning_rate)``, ``model.clip_global_norm`` (None:
-no clip) and ``model.dropout_generator(seed)`` (None: no dropout).
+no clip), ``model.dropout_generator(seed)`` (None: no dropout) and
+``model.after_step()``, called after each optimiser step for what the model
+keeps besides its parameters (the Nemotron-H hybrid's router biases; a no-op
+for the others).
 HaploFormer trains with AdamW at optax's defaults on the sampler's free
 labels; Enformer with Adam, the global gradient norm clipped, on targets the
 fused step's ``targets`` callback gives, its dropout drawn from a generator
-the state holds; the Granite hybrid with AdamW and a clip, on the windows'
-own next bases.
+the state holds; the Granite and Nemotron-H hybrids with AdamW and a clip,
+on the windows' own next bases.
 
 bf16 compute, float32 parameters and optimiser state.  A step updates the
 module's parameters and the optimiser's state in place and returns its
@@ -140,6 +143,7 @@ def _train_step(state: TrainState, hap1, hap2, n_variants, mesh: DeviceMesh | No
                 torch.nn.utils.clip_grad_norm_(state.model.parameters(), clip, foreach=True)
         with annotate("hh.train.optimizer"):
             state.optimizer.step()
+            state.model.after_step()
     return state._replace(step=state.step + 1), metrics
 
 

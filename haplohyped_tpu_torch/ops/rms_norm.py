@@ -4,21 +4,26 @@ function and the plain version.
 :func:`rms_norm` computes, over the last dimension ``D`` of ``x``,
 ``u * rsqrt(mean(u^2) + eps) * weight`` with ``u = x * silu(gate)`` where a
 gate is given (Mamba-2's mixer: ``rmsnorm(y * silu(z)) * w``) and ``u = x``
-where not.  Everything between the inputs and the output is float32 (float64
-for a float64 input), rounded once to ``x``'s dtype; ``weight`` is the
-float32 ``(D,)`` parameter, and its gradient is float32.
+where not.  With a ``group`` narrower than ``D`` the mean is over each group
+of ``group`` consecutive columns on its own (Mamba-2's mixer with several
+groups of ``B`` and ``C``); by default over the whole row.  Everything
+between the inputs and the output is float32 (float64 for a float64 input),
+rounded once to ``x``'s dtype; ``weight`` is the float32 ``(D,)`` parameter,
+and its gradient is float32.
 
 - On a CUDA tensor it is :class:`RmsNorm`, whose forward is one launch of
   ``csrc/rms_norm.cu`` and whose backward is two: a row is read once in
   each direction, and only ``x``, ``gate`` (the views the caller holds) and
-  one float32 ``rstd`` a row are kept for the backward.  ``x``, ``gate`` and
+  one float32 ``rstd`` a row (a group) are kept for the backward.  ``x``, ``gate`` and
   the output's gradient are read through a row stride, so a gate that is a
   column slice of a wider tensor is read in place.  It refuses what the
   kernels do not take (a dtype other than bf16 or float32, ``D`` not a
   multiple of 8 or past 8,192 bf16 or 4,096 float32 elements, rows that are
   not one stride apart with contiguous elements, a row or start off a
   16-byte boundary, a gate of another shape or dtype, a weight that is not
-  a contiguous float32 ``(D,)`` tensor) and never falls back; an output
+  a contiguous float32 ``(D,)`` tensor; a ``group`` that does not divide
+  ``D`` into multiples of 256 bf16 or 128 float32 columns, or a group
+  narrower than the row without a gate) and never falls back; an output
   gradient off those rules is copied first.  Its gradients cannot be
   differentiated again.
 - On a CPU tensor it is :func:`rms_norm_plain`, the same function in torch
@@ -45,11 +50,18 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float,
-                   gate: torch.Tensor | None = None) -> torch.Tensor:
+                   gate: torch.Tensor | None = None, group: int | None = None) -> torch.Tensor:
     """:func:`rms_norm` in torch ops, differentiated by autograd."""
     u = x.to(torch.promote_types(x.dtype, torch.float32))
     if gate is not None:
         u = u * F.silu(gate.to(u.dtype))
+    D = x.shape[-1]
+    if group is not None and group != D:
+        if D % group:
+            raise ValueError(f"a group of {group} does not divide the row of {D}")
+        u = u.unflatten(-1, (D // group, group))
+        u = (u * torch.rsqrt(u.pow(2).mean(-1, keepdim=True) + eps)).flatten(-2)
+        return (u * weight).to(x.dtype)
     return (u * torch.rsqrt(u.pow(2).mean(-1, keepdim=True) + eps) * weight).to(x.dtype)
 
 
@@ -59,9 +71,11 @@ def _library() -> ctypes.CDLL:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.hh_rmsnorm_parts.argtypes = [i, i, i]
     lib.hh_rmsnorm_parts.restype = i
-    lib.hh_rmsnorm_forward.argtypes = [p, ll, p, ll, i, i, i, p, f, p, p, p]
+    lib.hh_rmsnorm_group_ok.argtypes = [i, i, i]
+    lib.hh_rmsnorm_group_ok.restype = i
+    lib.hh_rmsnorm_forward.argtypes = [p, ll, p, ll, i, i, i, i, p, f, p, p, p]
     lib.hh_rmsnorm_forward.restype = i
-    lib.hh_rmsnorm_backward.argtypes = [p, ll, p, ll, p, ll, i, i, i, p, p, p, p, p, p, p]
+    lib.hh_rmsnorm_backward.argtypes = [p, ll, p, ll, p, ll, i, i, i, i, p, p, p, p, p, p, p]
     lib.hh_rmsnorm_backward.restype = i
     lib.hh_rmsnorm_error_string.argtypes = [i]
     lib.hh_rmsnorm_error_string.restype = ctypes.c_char_p
@@ -95,7 +109,8 @@ def _rows(t: torch.Tensor, what: str) -> tuple[int, int]:
     return t.numel() // t.shape[-1], stride
 
 
-def _check_inputs(x: torch.Tensor, weight: torch.Tensor, gate: torch.Tensor | None):
+def _check_inputs(x: torch.Tensor, weight: torch.Tensor, gate: torch.Tensor | None,
+                  group: int | None = None):
     """Rows and row strides of ``x`` and ``gate``; raise on what the kernels
     refuse (the device last, so a CPU tensor reaches the checks a card's
     does)."""
@@ -115,6 +130,13 @@ def _check_inputs(x: torch.Tensor, weight: torch.Tensor, gate: torch.Tensor | No
                              or gate.device != x.device):
         raise ValueError(f"the gate must match x ({x.dtype} {tuple(x.shape)} on {x.device}), "
                          f"got {gate.dtype} {tuple(gate.shape)} on {gate.device}")
+    if group is not None and group != D:
+        vec = 16 // x.element_size()
+        if group < 1 or D % group or group % (32 * vec):
+            raise ValueError(f"the kernels take groups of a multiple of {32 * vec} columns "
+                             f"that divide the row of {D}, got {group}")
+        if gate is None:
+            raise ValueError("the kernels take a group narrower than the row only with a gate")
     R, xs = _rows(x, "x")
     gs = _rows(gate, "the gate")[1] if gate is not None else 0
     if not x.is_cuda:
@@ -130,16 +152,16 @@ def _check(rc: int, what: str) -> None:
                            f"{_library().hh_rmsnorm_error_string(rc).decode()}")
 
 
-def _forward_kernel(x, weight, gate, eps):
-    R, xs, gs = _check_inputs(x, weight, gate)
+def _forward_kernel(x, weight, gate, eps, group):
+    R, xs, gs = _check_inputs(x, weight, gate, group)
     D = x.shape[-1]
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    rstd = torch.empty(R, dtype=torch.float32, device=x.device)
+    rstd = torch.empty(R * (D // group), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _library().hh_rmsnorm_forward(
             x.data_ptr(), xs, None if gate is None else gate.data_ptr(), gs, _DTYPES[x.dtype],
-            R, D, weight.data_ptr(), eps, out.data_ptr(), rstd.data_ptr(), stream)
+            R, D, group, weight.data_ptr(), eps, out.data_ptr(), rstd.data_ptr(), stream)
     _check(rc, "forward")
     rms_norm.launches += 1
     rms_norm.forward_calls += 1
@@ -147,8 +169,8 @@ def _forward_kernel(x, weight, gate, eps):
     return out, rstd
 
 
-def _backward_kernel(x, weight, gate, rstd, dout):
-    R, xs, gs = _check_inputs(x, weight, gate)
+def _backward_kernel(x, weight, gate, rstd, dout, group):
+    R, xs, gs = _check_inputs(x, weight, gate, group)
     D = x.shape[-1]
     if dout.dtype != x.dtype or dout.shape != x.shape or dout.device != x.device:
         raise ValueError(f"the output's gradient is {dout.dtype} {tuple(dout.shape)} on "
@@ -168,7 +190,7 @@ def _backward_kernel(x, weight, gate, rstd, dout):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _library().hh_rmsnorm_backward(
             x.data_ptr(), xs, None if gate is None else gate.data_ptr(), gs, dout.data_ptr(), ds,
-            _DTYPES[x.dtype], R, D, weight.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+            _DTYPES[x.dtype], R, D, group, weight.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
             None if dg is None else dg.data_ptr(), partial.data_ptr(), dw.data_ptr(), stream)
     _check(rc, "backward")
     rms_norm.launches += 2
@@ -183,8 +205,9 @@ class RmsNorm(torch.autograd.Function):
     differentiated again."""
 
     @staticmethod
-    def forward(ctx, x, weight, gate, eps):
-        out, rstd = _forward_kernel(x, weight, gate, eps)
+    def forward(ctx, x, weight, gate, eps, group):
+        out, rstd = _forward_kernel(x, weight, gate, eps, group)
+        ctx.group = group
         ctx.save_for_backward(x, weight, gate, rstd)
         return out
 
@@ -192,20 +215,21 @@ class RmsNorm(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         x, weight, gate, rstd = ctx.saved_tensors
-        dx, dw, dg = _backward_kernel(x, weight, gate, rstd, dout)
-        return dx, dw, dg, None
+        dx, dw, dg = _backward_kernel(x, weight, gate, rstd, dout, ctx.group)
+        return dx, dw, dg, None, None
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
-             gate: torch.Tensor | None = None) -> torch.Tensor:
-    """``u * rsqrt(mean(u^2) + eps) * weight`` over the last dimension, ``u
-    = x * silu(gate)`` or ``x``, in ``x``'s dtype: the kernels on a CUDA
-    tensor, :func:`rms_norm_plain` on a CPU one."""
+             gate: torch.Tensor | None = None, group: int | None = None) -> torch.Tensor:
+    """``u * rsqrt(mean(u^2) + eps) * weight`` over the last dimension (or
+    each ``group`` of its columns), ``u = x * silu(gate)`` or ``x``, in
+    ``x``'s dtype: the kernels on a CUDA tensor, :func:`rms_norm_plain` on a
+    CPU one."""
     if x.device.type == "cpu":
-        return rms_norm_plain(x, weight, eps, gate)
+        return rms_norm_plain(x, weight, eps, gate, group)
     if x.device.type != "cuda":
         raise ValueError(f"no rms_norm kernel for device {x.device}")
-    return RmsNorm.apply(x, weight, gate, eps)
+    return RmsNorm.apply(x, weight, gate, eps, x.shape[-1] if group is None else group)
 
 
 rms_norm.launches = 0

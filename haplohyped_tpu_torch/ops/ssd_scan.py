@@ -3,32 +3,36 @@ autograd function and the plain version.
 
 :func:`ssd_scan` computes, for each batch row and head ``h``, the
 selective state-space recurrence of Mamba-2 (Dao and Gu 2024, *Transformers
-are SSMs*, §6) with one group of ``B`` and ``C`` shared by the heads::
+are SSMs*, §6), the heads in ``G`` groups of ``H / G`` consecutive heads that
+share one ``B`` and one ``C`` (head ``h`` reads group ``h // (H / G)``)::
 
     S_t = exp(dt_t A_h) S_{t-1} + dt_t x_t B_t^T,    S_0 = 0  (a (P, N) state)
     y_t = S_t C_t + D_h x_t
 
 over ``x`` ``(b, T, H, P)``, ``dt`` ``(b, T, H)`` float32 (after the
-softplus), ``A`` ``(H,)`` float32 (negative), ``B`` and ``C`` ``(b, T, N)``
-and ``D`` ``(H,)`` float32, in the paper's chunked form: inside a chunk of
-``chunk`` positions the decay-masked products ``(C B^T * L) (dt x)``; the
-chunk's end state; a sequential pass of the states over the chunks; the
-states' contribution ``exp(s) C H^T`` and ``D x``.  The result has ``x``'s
-dtype.  A length that is no multiple of the chunk is padded at the end with
-``dt = 0`` (no decay, no input), which leaves every earlier output as it is.
+softplus), ``A`` ``(H,)`` float32 (negative), ``B`` and ``C`` ``(b, T, G,
+N)`` (or ``(b, T, N)``: one group) and ``D`` ``(H,)`` float32, in the paper's
+chunked form: inside a chunk of ``chunk`` positions the decay-masked
+products ``(C B^T * L) (dt x)``, ``C B^T`` once a group; the chunk's end
+state; a sequential pass of the states over the chunks; the states'
+contribution ``exp(s) C H^T`` and ``D x``.  The result has ``x``'s dtype.
+A length that is no multiple of the chunk is padded at the end with ``dt =
+0`` (no decay, no input), which leaves every earlier output as it is.
 
 - On a CPU tensor it is :func:`ssd_scan_plain`, in float32 (float64 for a
   float64 input), rounded once to ``x``'s dtype.
 - On a CUDA tensor it is :class:`SsdScan`: bf16 ``x``, ``B`` and ``C``, a
-  chunk of 256; the matrix products are ``torch.bmm`` (cuBLAS), the decay
-  mask, the float32 state pass and the passes and reductions around them
-  the launches of ``csrc/ssd_scan.cu``.  The chunks' end states, the pass
-  and the entering states are float32; an entering state is rounded to bf16
-  only as an operand of the products by ``C`` (forward) and ``dy``
-  (backward).  Its backward recomputes the chunk states from the saved
-  inputs (nothing but the inputs is kept), and its gradients cannot be
-  differentiated again.  It refuses what the kernels do not take and never
-  falls back.
+  chunk of 128 or 256 (:data:`CHUNKS`), ``H`` a multiple of ``G``; the
+  matrix products are ``torch.bmm`` (cuBLAS), per group where ``B`` or ``C``
+  enters, the decay mask, the float32 state pass and the passes and
+  reductions around them the launches of ``csrc/ssd_scan.cu``.  The chunks'
+  end states, the pass and the entering states are float32; an entering
+  state is rounded to bf16 only as an operand of the products by ``C``
+  (forward) and ``dy`` (backward).  Its backward recomputes the chunk states
+  from the saved inputs (nothing but the inputs is kept), and its gradients
+  cannot be differentiated again.  It refuses what the kernels do not take
+  and never falls back.  With one group it computes what it did before
+  groups were taken, launch for launch.
 
 ``ssd_scan.forward_calls`` and ``ssd_scan.backward_calls`` count the
 function's calls and their backward passes on either path;
@@ -55,29 +59,34 @@ def ssd_scan_plain(x, dt, A, B, C, D, chunk: int) -> torch.Tensor:
     paper's chunked form with the state pass as a loop over the chunks."""
     out_dtype, wide = x.dtype, torch.promote_types(x.dtype, torch.float32)
     b, T, H, P = x.shape
-    N = B.shape[-1]
+    if B.dim() == 3:
+        B, C = B[:, :, None], C[:, :, None]
+    G, N = B.shape[-2:]
+    K = H // G
     pad = (-T) % chunk
     x, dt, B, C = (F.pad(t.to(wide), (0, 0) * (t.dim() - 2) + (0, pad))
                    for t in (x, dt, B, C))
     nc, Q = (T + pad) // chunk, chunk
-    x = x.view(b, nc, Q, H, P)
-    B, C = B.view(b, nc, Q, N), C.view(b, nc, Q, N)
-    dt = dt.view(b, nc, Q, H)
-    s = torch.cumsum(dt * A.to(wide), dim=2).permute(0, 3, 1, 2)  # (b, H, nc, Q)
+    x = x.view(b, nc, Q, G, K, P)
+    B, C = B.view(b, nc, Q, G, N), C.view(b, nc, Q, G, N)
+    dt = dt.view(b, nc, Q, G, K)
+    s = torch.cumsum(dt * A.to(wide).view(G, K), dim=2).permute(0, 3, 4, 1, 2)  # (b, G, K, nc, Q)
     causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
     decay = torch.exp((s[..., :, None] - s[..., None, :]).masked_fill(~causal, -torch.inf))
     xdt = x * dt[..., None]
-    y = torch.einsum("bcin,bcjn,bhcij,bcjhp->bcihp", C, B, decay, xdt)
+    CB = torch.einsum("bcign,bcjgn->bcgij", C, B)  # once a group
+    y = torch.einsum("bcgij,bgkcij,bcjgkp->bcigkp", CB, decay, xdt)
     # each chunk's end state, then the states entering each chunk
-    states = torch.einsum("bcjn,bhcj,bcjhp->bchpn", B, torch.exp(s[..., -1:] - s), xdt)
-    chunk_decay = torch.exp(s[..., -1])  # (b, H, nc)
-    h = x.new_zeros(b, H, P, N)
+    states = torch.einsum("bcjgn,bgkcj,bcjgkp->bcgkpn", B, torch.exp(s[..., -1:] - s), xdt)
+    chunk_decay = torch.exp(s[..., -1])  # (b, G, K, nc)
+    h = x.new_zeros(b, G, K, P, N)
     entering = []
     for c in range(nc):
         entering.append(h)
-        h = chunk_decay[:, :, c, None, None] * h + states[:, c]
-    y = y + torch.einsum("bcin,bchpn,bhci->bcihp", C, torch.stack(entering, 1), torch.exp(s))
-    y = y + x * D.to(wide)[:, None]
+        h = chunk_decay[..., c, None, None] * h + states[:, c]
+    y = y + torch.einsum("bcign,bcgkpn,bgkci->bcigkp", C, torch.stack(entering, 1),
+                         torch.exp(s))
+    y = y + x * D.to(wide).view(G, K, 1)
     return y.reshape(b, nc * Q, H, P)[:, :T].to(out_dtype)
 
 
@@ -112,15 +121,15 @@ class _PlainScan(torch.autograd.Function):
 def _library() -> ctypes.CDLL:
     lib = _build.load_kernel("ssd_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hh_ssd_chunk.argtypes = []
-    lib.hh_ssd_chunk.restype = i
-    lib.hh_ssd_fwd_prep.argtypes = [i, i, i, i] + [p] * 9 + [p]
-    lib.hh_ssd_bwd_prep.argtypes = [i, i, i, i] + [p] * 13 + [p]
-    lib.hh_ssd_state_pass.argtypes = [i, i, i, i, i, p, p, p, p, i, p]
-    lib.hh_ssd_fwd_combine.argtypes = [i, i, i, i] + [p] * 6 + [p]
-    lib.hh_ssd_bwd_reverse_pass.argtypes = [i, i, i, i, i] + [p] * 5 + [p]
-    lib.hh_ssd_bwd_mask.argtypes = [i, i, i, i] + [p] * 7 + [p]
-    lib.hh_ssd_bwd_finish.argtypes = [i, i, i, i] + [p] * 17 + [p]
+    lib.hh_ssd_chunk_ok.argtypes = [i]
+    lib.hh_ssd_chunk_ok.restype = i
+    lib.hh_ssd_fwd_prep.argtypes = [i] * 6 + [p] * 9 + [p]
+    lib.hh_ssd_bwd_prep.argtypes = [i] * 6 + [p] * 13 + [p]
+    lib.hh_ssd_state_pass.argtypes = [i] * 6 + [p, p, p, p, i, p]
+    lib.hh_ssd_fwd_combine.argtypes = [i] * 6 + [p] * 6 + [p]
+    lib.hh_ssd_bwd_reverse_pass.argtypes = [i] * 6 + [p] * 5 + [p]
+    lib.hh_ssd_bwd_mask.argtypes = [i] * 6 + [p] * 7 + [p]
+    lib.hh_ssd_bwd_finish.argtypes = [i] * 6 + [p] * 17 + [p]
     for name in ("hh_ssd_fwd_prep", "hh_ssd_bwd_prep", "hh_ssd_state_pass",
                  "hh_ssd_fwd_combine", "hh_ssd_bwd_reverse_pass", "hh_ssd_bwd_mask",
                  "hh_ssd_bwd_finish"):
@@ -142,18 +151,28 @@ def _check(rc: int, what: str) -> None:
                            f"{_library().hh_ssd_error_string(rc).decode()}")
 
 
+#: the chunks the kernels take
+CHUNKS = (128, 256)
+
+
 def _validate(x, dt, A, B, C, D, chunk: int) -> None:
-    """Raise on what the kernels do not take."""
+    """Raise on what the kernels do not take (``B`` and ``C`` ``(b, T, G,
+    N)`` here)."""
     if not x.is_cuda:
         raise ValueError(f"the kernels take CUDA tensors, got one on {x.device}")
-    want = _library().hh_ssd_chunk()
-    if chunk != want:
-        raise ValueError(f"the kernels take a chunk of {want}, got {chunk}")
+    if chunk not in CHUNKS or not _library().hh_ssd_chunk_ok(chunk):
+        raise ValueError(f"the kernels take a chunk of {' or '.join(map(str, CHUNKS))}, "
+                         f"got {chunk}")
+    if x.dim() != 4 or B.dim() != 4:
+        raise ValueError(f"x must be (b, T, H, P) and B (b, T, G, N), got {tuple(x.shape)} "
+                         f"and {tuple(B.shape)}")
     b, T, H, P = x.shape
-    N = B.shape[-1]
+    G, N = B.shape[-2:]
+    if G < 1 or H % G:
+        raise ValueError(f"the {H} heads must fall into the {G} groups of B and C evenly")
     shapes = {"x": (x, torch.bfloat16, (b, T, H, P)), "dt": (dt, torch.float32, (b, T, H)),
-              "A": (A, torch.float32, (H,)), "B": (B, torch.bfloat16, (b, T, N)),
-              "C": (C, torch.bfloat16, (b, T, N)), "D": (D, torch.float32, (H,))}
+              "A": (A, torch.float32, (H,)), "B": (B, torch.bfloat16, (b, T, G, N)),
+              "C": (C, torch.bfloat16, (b, T, G, N)), "D": (D, torch.float32, (H,))}
     for name, (t, dtype, shape) in shapes.items():
         if t.dtype != dtype or tuple(t.shape) != shape or t.device != x.device \
                 or not t.is_contiguous():
@@ -163,43 +182,58 @@ def _validate(x, dt, A, B, C, D, chunk: int) -> None:
         raise ValueError(f"T={T} is no multiple of the chunk {chunk}")
 
 
+def _by_group(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``B`` or ``C`` ``(b, T, G, N)`` as ``(b nc G, Q, N)``, one matrix a
+    chunk and group (a view for one group)."""
+    b, T, G, N = t.shape
+    return t.view(b, T // chunk, chunk, G, N).transpose(2, 3).reshape(-1, chunk, N)
+
+
+def _by_token(t: torch.Tensor, b: int, T: int) -> torch.Tensor:
+    """A ``(b nc G, Q, N)`` gradient back as ``(b, T, G, N)``."""
+    n, Q, N = t.shape
+    G = n // (b * (T // Q))
+    return t.view(b, T // Q, G, Q, N).transpose(2, 3).reshape(b, T, G, N)
+
+
 def _recompute(x, dt, A, B, C, chunk: int, dy=None) -> dict:
     """The forward's prep, chunk states and state pass (with ``dy``: the
     backward's, with ``dy`` head-major and scaled by ``exp(s)``).  The chunk
     states ``S`` and the entering states ``Hin`` are float32; ``Hb`` is
     ``Hin`` rounded to bf16, the operand of the products by ``C`` and ``dy``
-    (Mamba-2's kernels round the states they multiply by ``C`` alike)."""
+    (Mamba-2's kernels round the states they multiply by ``C`` alike).  The
+    operands of the per-group products (``xw``, ``dye``) are group-major,
+    ``(b nc G, Q, H / G P)``."""
     lib = _library()
     b, T, H, P = x.shape
-    N = B.shape[-1]
-    nc, Q = T // chunk, chunk
+    G, N = B.shape[-2:]
+    nc, Q, K = T // chunk, chunk, H // G
     dev, bf = x.device, torch.bfloat16
-    Bc, Cc = B.view(b * nc, Q, N), C.view(b * nc, Q, N)
-    G = torch.bmm(Cc.float(), Bc.float().transpose(1, 2))  # (b nc, Q, Q): C B^T
-    r = {"Bc": Bc, "Cc": Cc, "G": G,
+    Bc, Cc = _by_group(B, chunk), _by_group(C, chunk)  # (b nc G, Q, N)
+    Gm = torch.bmm(Cc.float(), Bc.float().transpose(1, 2))  # (b nc G, Q, Q): C B^T
+    r = {"Bc": Bc, "Cc": Cc, "G": Gm,
          "s": torch.empty((b, H, T), dtype=torch.float32, device=dev),
          "e": torch.empty((b, H, nc), dtype=torch.float32, device=dev),
          "M": torch.empty((b * nc * H, Q, Q), dtype=bf, device=dev),
          "xh": torch.empty((b * nc * H, Q, P), dtype=bf, device=dev),
-         "xw": torch.empty_like(x)}
+         "xw": torch.empty((b * nc * G, Q, K * P), dtype=bf, device=dev)}
     stream = torch.cuda.current_stream(dev).cuda_stream
-    common = (b, T, H, P, x.data_ptr(), dt.data_ptr(), A.data_ptr(), G.data_ptr(),
+    common = (b, T, H, P, G, Q, x.data_ptr(), dt.data_ptr(), A.data_ptr(), Gm.data_ptr(),
               r["s"].data_ptr(), r["e"].data_ptr(), r["M"].data_ptr(), r["xh"].data_ptr(),
               r["xw"].data_ptr())
     with torch.cuda.device(dev):
         if dy is None:
             _check(lib.hh_ssd_fwd_prep(*common, stream), "forward prep")
         else:
-            r |= {"dyh": torch.empty_like(r["xh"]), "dye": torch.empty_like(dy),
+            r |= {"dyh": torch.empty_like(r["xh"]), "dye": torch.empty_like(r["xw"]),
                   "dtT": torch.empty_like(r["s"])}
             _check(lib.hh_ssd_bwd_prep(*common, dy.data_ptr(), r["dyh"].data_ptr(),
                                        r["dye"].data_ptr(), r["dtT"].data_ptr(), stream),
                    "backward prep")
-        # each chunk's end state: (x w)^T B, (b nc, H P, N), float32
-        S = torch.bmm(r["xw"].view(b * nc, Q, H * P).transpose(1, 2), Bc,
-                      out_dtype=torch.float32)
+        # each chunk's end state: (x w)^T B a group, (b nc G, K P, N) = (b nc, H P, N), float32
+        S = torch.bmm(r["xw"].transpose(1, 2), Bc, out_dtype=torch.float32)
         r["Hin"], r["Hb"] = torch.empty_like(S), torch.empty_like(S, dtype=bf)
-        _check(lib.hh_ssd_state_pass(b, T, H, P, N, S.data_ptr(), r["e"].data_ptr(),
+        _check(lib.hh_ssd_state_pass(b, T, H, P, N, Q, S.data_ptr(), r["e"].data_ptr(),
                                      r["Hin"].data_ptr(), r["Hb"].data_ptr(),
                                      int(dy is not None), stream),
                "state pass")
@@ -210,13 +244,14 @@ def _recompute(x, dt, A, B, C, chunk: int, dy=None) -> dict:
 def _forward_kernel(x, dt, A, B, C, D, chunk: int) -> torch.Tensor:
     lib = _library()
     b, T, H, P = x.shape
+    G = B.shape[-2]
     r = _recompute(x, dt, A, B, C, chunk)
     ydiag = torch.bmm(r["M"], r["xh"])  # (b nc H, Q, P)
-    yoff = torch.bmm(r["Cc"], r["Hb"].transpose(1, 2))  # (b nc, Q, H P): C H^T
+    yoff = torch.bmm(r["Cc"], r["Hb"].transpose(1, 2))  # (b nc G, Q, K P): C H^T
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _check(lib.hh_ssd_fwd_combine(b, T, H, P, ydiag.data_ptr(), yoff.data_ptr(),
+        _check(lib.hh_ssd_fwd_combine(b, T, H, P, G, chunk, ydiag.data_ptr(), yoff.data_ptr(),
                                       r["s"].data_ptr(), x.data_ptr(), D.data_ptr(),
                                       y.data_ptr(), stream), "forward combine")
     ssd_scan.launches += 1
@@ -226,7 +261,7 @@ def _forward_kernel(x, dt, A, B, C, D, chunk: int) -> torch.Tensor:
 def _backward_kernel(x, dt, A, B, C, D, chunk: int, dy: torch.Tensor):
     lib = _library()
     b, T, H, P = x.shape
-    N = B.shape[-1]
+    G, N = B.shape[-2:]
     nc, Q = T // chunk, chunk
     dev, f32 = x.device, torch.float32
     if dy.dtype != x.dtype or dy.shape != x.shape:
@@ -234,15 +269,16 @@ def _backward_kernel(x, dt, A, B, C, D, chunk: int, dy: torch.Tensor):
                          f"{x.dtype} {tuple(x.shape)}")
     dy = dy.contiguous()
     r = _recompute(x, dt, A, B, C, chunk, dy)
-    Bc, Cc, Hb, dye = r["Bc"], r["Cc"], r["Hb"], r["dye"].view(b * nc, Q, H * P)
+    Bc, Cc, dye = r["Bc"], r["Cc"], r["dye"]
+    Hb = r["Hb"].view(b * nc * G, -1, N)  # (b nc G, K P, N)
     yoff = torch.bmm(Cc, Hb.transpose(1, 2))
     dM = torch.bmm(r["dyh"], r["xh"].transpose(1, 2))  # (b nc H, Q, Q): dy x^T
     dxdiag = torch.bmm(r["M"].transpose(1, 2), r["dyh"])  # M^T dy
-    dHloc = torch.bmm(dye.transpose(1, 2), Cc)  # (b nc, H P, N)
-    dCoff = torch.bmm(dye, Hb)  # (b nc, Q, N)
+    dHloc = torch.bmm(dye.transpose(1, 2), Cc)  # (b nc G, K P, N)
+    dCoff = torch.bmm(dye, Hb)  # (b nc G, Q, N)
     dS = torch.empty_like(Hb)
     de = torch.zeros((b, H, nc), dtype=f32, device=dev)
-    dG = torch.empty((b * nc, Q, Q), dtype=f32, device=dev)
+    dG = torch.empty((b * nc * G, Q, Q), dtype=f32, device=dev)
     ds = torch.zeros((b, H, T), dtype=f32, device=dev)
     ddt_acc = torch.zeros_like(ds)
     dx = torch.empty_like(x)
@@ -251,35 +287,39 @@ def _backward_kernel(x, dt, A, B, C, D, chunk: int, dy: torch.Tensor):
     dD = torch.zeros_like(D)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _check(lib.hh_ssd_bwd_reverse_pass(b, T, H, P, N, dHloc.data_ptr(),
+        _check(lib.hh_ssd_bwd_reverse_pass(b, T, H, P, N, Q, dHloc.data_ptr(),
                                            r["Hin"].data_ptr(), r["e"].data_ptr(),
                                            dS.data_ptr(), de.data_ptr(), stream),
                "reverse pass")
-        dBst = torch.bmm(r["xw"].view(b * nc, Q, H * P), dS)  # (b nc, Q, N)
-        dxw = torch.bmm(Bc, dS.transpose(1, 2))  # (b nc, Q, H P)
-        _check(lib.hh_ssd_bwd_mask(b, T, H, P, dM.data_ptr(), r["G"].data_ptr(),
+        dBst = torch.bmm(r["xw"], dS)  # (b nc G, Q, N)
+        dxw = torch.bmm(Bc, dS.transpose(1, 2))  # (b nc G, Q, K P)
+        _check(lib.hh_ssd_bwd_mask(b, T, H, P, G, Q, dM.data_ptr(), r["G"].data_ptr(),
                                    r["s"].data_ptr(), r["dtT"].data_ptr(), dG.data_ptr(),
                                    ds.data_ptr(), ddt_acc.data_ptr(), stream), "mask backward")
-        _check(lib.hh_ssd_bwd_finish(b, T, H, P, dxdiag.data_ptr(), dxw.data_ptr(),
+        _check(lib.hh_ssd_bwd_finish(b, T, H, P, G, Q, dxdiag.data_ptr(), dxw.data_ptr(),
                                      dy.data_ptr(), x.data_ptr(), yoff.data_ptr(),
                                      r["s"].data_ptr(), r["dtT"].data_ptr(), r["e"].data_ptr(),
                                      de.data_ptr(), A.data_ptr(), D.data_ptr(), ds.data_ptr(),
                                      ddt_acc.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
                                      dA.data_ptr(), dD.data_ptr(), stream), "finish")
     ssd_scan.launches += 3
-    dC = (torch.bmm(dG, Bc.float()) + dCoff.float()).view(b, T, N).to(C.dtype)
-    dB = (torch.bmm(dG.transpose(1, 2), Cc.float()) + dBst.float()).view(b, T, N).to(B.dtype)
+    dC = _by_token(torch.bmm(dG, Bc.float()) + dCoff.float(), b, T).to(C.dtype)
+    dB = _by_token(torch.bmm(dG.transpose(1, 2), Cc.float()) + dBst.float(), b, T).to(B.dtype)
     return dx, ddt, dA, dB, dC, dD
 
 
 class SsdScan(torch.autograd.Function):
     """:func:`ssd_scan` on CUDA tensors through the kernels; the backward
-    recomputes the mask and the chunk states from the saved inputs.  Its
-    gradients are written by the kernels, so they cannot be differentiated
-    again."""
+    recomputes the mask and the chunk states from the saved inputs.  ``B``
+    and ``C`` are ``(b, T, G, N)`` or ``(b, T, N)`` (one group), and their
+    gradients take their shape.  Its gradients are written by the kernels,
+    so they cannot be differentiated again."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, D, chunk):
+        ctx.one_group = B.dim() == 3
+        if ctx.one_group:
+            B, C = B[:, :, None], C[:, :, None]
         _validate(x, dt, A, B, C, D, chunk)
         ctx.chunk = chunk
         ctx.save_for_backward(x, dt, A, B, C, D)
@@ -292,7 +332,10 @@ class SsdScan(torch.autograd.Function):
     def backward(ctx, dy):
         ssd_scan.backward_calls += 1
         with annotate("hh.ssd_scan.backward"):
-            return (*_backward_kernel(*ctx.saved_tensors, ctx.chunk, dy), None)
+            dx, ddt, dA, dB, dC, dD = _backward_kernel(*ctx.saved_tensors, ctx.chunk, dy)
+        if ctx.one_group:
+            dB, dC = dB[:, :, 0], dC[:, :, 0]
+        return dx, ddt, dA, dB, dC, dD, None
 
 
 def ssd_scan(x, dt, A, B, C, D, chunk: int) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """The comparison that holds the norms' kernels (``ops/rms_norm.py``) to
 their plain version on the card.
 
-``chip_smoke.py`` phase 22 and the ``cuda``-marked tests run
-:func:`rms_compare` at the Granite hybrid cell's shapes; the CPU tests use
-:func:`rms_inputs` and :func:`rms_run` on the plain version.
+``chip_smoke.py`` phases 22 and 23 and the ``cuda``-marked tests run
+:func:`rms_compare` at the Granite and Nemotron-H hybrid cells' shapes; the
+CPU tests use :func:`rms_inputs` and :func:`rms_run` on the plain version.
 """
 
 from __future__ import annotations
@@ -17,6 +17,10 @@ from haplohyped_tpu_torch.tools.batchnorm_gelu_check import bf16_steps_apart
 #: width (the plain norms), the mixer's width (the gated ones) and the width
 #: of ``in_proj``'s output, whose first ``MIXER`` columns are the gate ``z``
 ROWS, HIDDEN, MIXER, IN_PROJ = 16384, 2048, 4096, 8512
+#: the Nemotron-H cell's: 4 sequences of 8,192 tokens, the hidden width
+#: 2,688 (21 x 128), the mixer's 4,096 normalised in 8 groups of 512, and
+#: ``in_proj``'s 10,304
+NEMOTRON_ROWS, NEMOTRON_HIDDEN, NEMOTRON_GROUP, NEMOTRON_IN_PROJ = 32768, 2688, 512, 10304
 #: the published ``rms_norm_eps``
 EPS = 1e-5
 #: the largest gap of each gradient from the float64 plain version's, as a
@@ -53,31 +57,32 @@ def rms_inputs(rows: int, width: int, gated: bool, dtype: torch.dtype, gen: torc
     return inp
 
 
-def rms_run(fn, inp: dict, wide=None) -> dict:
+def rms_run(fn, inp: dict, wide=None, group: int | None = None) -> dict:
     """``fn`` forward and backward on ``inp`` (widened to ``wide`` if given,
-    else the gate's view as it is): the output and every gradient."""
+    else the gate's view as it is), over groups of ``group`` columns if
+    given: the output and every gradient."""
     cast = (lambda t: t.to(wide)) if wide is not None else (lambda t: t)
     x, weight = (cast(inp[k]).detach().requires_grad_() for k in ("x", "weight"))
     gate = cast(inp["gate"]).detach().requires_grad_() if "gate" in inp else None
-    out = fn(x, weight, EPS, gate)
+    out = fn(x, weight, EPS, gate) if group is None else fn(x, weight, EPS, gate, group)
     leaves = (x, weight) if gate is None else (x, weight, gate)
     grads = torch.autograd.grad(out, leaves, cast(inp["dout"]))
     return dict(zip(("out", "dx", "dw", "dg"), (out.detach(), *grads)))
 
 
-def rms_compare(inp: dict, what: str) -> dict:
+def rms_compare(inp: dict, what: str, group: int | None = None) -> dict:
     """:func:`rms_norm` on the card's tensors ``inp`` (the kernels) against
     the float64 plain version: a bf16 output equal to its rounding or one
     bf16 step apart, at most 1% of elements apart, a float32 one within
     ``F32_TOL`` of its norm; each gradient within its tolerance above; two
     runs bit-equal.  Raises on a failed check; returns the worst gaps."""
     _check(inp["x"].is_cuda, f"{what}: the kernels' comparison needs the card's tensors")
-    got = rms_run(rms_norm, inp)
-    again = rms_run(rms_norm, inp)
+    got = rms_run(rms_norm, inp, group=group)
+    again = rms_run(rms_norm, inp, group=group)
     torch.cuda.synchronize()  # a fault in a kernel surfaces here
     for k in got:
         _check(torch.equal(got[k], again[k]), f"{what}: two runs give different {k}")
-    exact = rms_run(rms_norm_plain, inp, wide=torch.float64)
+    exact = rms_run(rms_norm_plain, inp, wide=torch.float64, group=group)
     bf16 = got["out"].dtype == torch.bfloat16
     gaps = {}
     if bf16:

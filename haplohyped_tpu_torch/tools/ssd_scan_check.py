@@ -1,9 +1,10 @@
 """The comparison that holds the chunked scan's kernels (``ops/ssd_scan.py``)
 to their plain version on the card.
 
-``chip_smoke.py`` phase 21 runs :func:`ssd_compare` at the Granite hybrid
-cell's shapes, and the ``cuda``-marked tests too; :func:`ssd_inputs` makes
-inputs of a Mamba-2 mixer's scales from a generator.
+``chip_smoke.py`` phases 21 and 23 run :func:`ssd_compare` at the Granite
+and Nemotron-H hybrid cells' shapes, and the ``cuda``-marked tests too;
+:func:`ssd_inputs` makes inputs of a Mamba-2 mixer's scales from a
+generator.
 """
 
 from __future__ import annotations
@@ -18,6 +19,10 @@ from haplohyped_tpu_torch.ops.ssd_scan import ssd_scan, ssd_scan_plain
 #: 128, chunks of 256
 CELL_SHAPE = (2, 8192, 64, 64, 128)
 CHUNK = 256
+#: the Nemotron-H cell's scan: 4 sequences of 8,192 tokens, 64 heads of 64,
+#: a state of 128 in 8 groups of B and C, chunks of 128
+NEMOTRON_SHAPE = (4, 8192, 64, 64, 128, 8)
+NEMOTRON_CHUNK = 128
 #: the largest gap of the kernels' output and of each gradient from the
 #: plain version's, as a share of the plain version's norm: the kernels round
 #: the mask, the entering states' operand copy and the products' outputs to
@@ -32,8 +37,11 @@ def ssd_inputs(shape: tuple, gen: torch.Generator, device) -> dict:
     """``x``, ``B``, ``C`` bf16 (``N(0, 0.5^2)``, a SiLU's scale), ``dt``
     log-uniform in ``[1e-3, 1e-1]`` (Mamba-2's range), ``A`` in ``[-16,
     -1]``, ``D`` ``1 + N(0, 0.1^2)`` and an output gradient ``dy``, from
-    ``gen`` on ``device``."""
-    b, T, H, P, N = shape
+    ``gen`` on ``device``.  ``shape`` is ``(b, T, H, P, N)`` (``B`` and
+    ``C`` ``(b, T, N)``: one group) or ``(b, T, H, P, N, G)`` (``(b, T, G,
+    N)``)."""
+    b, T, H, P, N = shape[:5]
+    bc = (b, T, N) if len(shape) == 5 else (b, T, shape[5], N)
 
     def rnd(*s):
         return torch.randn(s, generator=gen, device=device)
@@ -45,8 +53,8 @@ def ssd_inputs(shape: tuple, gen: torch.Generator, device) -> dict:
     return {"x": (0.5 * rnd(b, T, H, P)).to(torch.bfloat16),
             "dt": torch.exp(lo + (hi - lo) * uni(b, T, H)),
             "A": -(1 + 15 * uni(H)),
-            "B": (0.5 * rnd(b, T, N)).to(torch.bfloat16),
-            "C": (0.5 * rnd(b, T, N)).to(torch.bfloat16),
+            "B": (0.5 * rnd(*bc)).to(torch.bfloat16),
+            "C": (0.5 * rnd(*bc)).to(torch.bfloat16),
             "D": 1 + 0.1 * rnd(H),
             "dy": rnd(b, T, H, P).to(torch.bfloat16)}
 

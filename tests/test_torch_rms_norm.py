@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from haplohyped_tpu_torch.models import granite_hybrid as G
+from haplohyped_tpu_torch.models import hybrid_layers
 from haplohyped_tpu_torch.ops import rms_norm as R
 from haplohyped_tpu_torch.tools.granite_step_check import check_granite_step, granite_step
 from haplohyped_tpu_torch.tools.rms_norm_check import (
@@ -22,6 +23,10 @@ from haplohyped_tpu_torch.tools.rms_norm_check import (
     HIDDEN,
     IN_PROJ,
     MIXER,
+    NEMOTRON_GROUP,
+    NEMOTRON_HIDDEN,
+    NEMOTRON_IN_PROJ,
+    NEMOTRON_ROWS,
     ROWS,
     rms_compare,
     rms_inputs,
@@ -189,13 +194,13 @@ def test_the_models_norms_get_rows_the_kernels_take(monkeypatch, length):
     pass every check of the kernels' path before the device's."""
     calls = []
 
-    def record(x, weight, eps, gate=None):
+    def record(x, weight, eps, gate=None, group=None):
         calls.append(gate is not None)
         with pytest.raises(ValueError, match="CUDA tensor"):
-            R._check_inputs(x, weight, gate)
-        return R.rms_norm(x, weight, eps, gate)
+            R._check_inputs(x, weight, gate, group)
+        return R.rms_norm(x, weight, eps, gate, group)
 
-    monkeypatch.setattr(G, "rms_norm", record)
+    monkeypatch.setattr(hybrid_layers, "rms_norm", record)
     cfg = G.GraniteHybridConfig(
         hidden_size=64, intermediate_size=128, num_attention_heads=4, num_key_value_heads=2,
         mamba_n_heads=8, mamba_d_head=16, mamba_d_state=16, mamba_chunk_size=32,
@@ -206,6 +211,57 @@ def test_the_models_norms_get_rows_the_kernels_take(monkeypatch, length):
     model.loss(h1, h2)[0].backward()
     mixers = cfg.layer_types.count("mamba")
     assert len(calls) == 2 * len(cfg.layer_types) + 1 + mixers and sum(calls) == mixers
+
+
+@pytest.mark.parametrize("group", [16, 48], ids=["groups_of_16", "one_group"])
+def test_the_grouped_norm_is_the_norm_of_each_group(group):
+    """A gated norm over groups of ``group`` columns is, group by group,
+    the plain gated norm of the group's columns with its part of the
+    weight: output and every gradient in float64; a group as wide as the
+    row is the ungrouped norm, bit for bit."""
+    inp = _inputs((5, 48), True, torch.float64, seed=4, gate_from=80)
+    got = rms_run(R.rms_norm, inp, group=group)
+    parts = []
+    for a in range(0, 48, group):
+        cols = slice(a, a + group)
+        parts.append(rms_run(R.rms_norm_plain, {k: (v[cols] if k == "weight" else v[:, cols])
+                                                 for k, v in inp.items()}))
+    want = {k: torch.cat([p[k] for p in parts], 0 if k == "dw" else 1) for k in parts[0]}
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-12, atol=1e-14)
+    if group == 48:
+        plain = rms_run(R.rms_norm, inp)
+        for k in plain:
+            assert torch.equal(got[k], plain[k]), k
+
+
+def test_gradcheck_grouped_in_float64():
+    inp = _inputs((3, 32), True, torch.float64, seed=6)
+    args = [inp[k].detach().double().requires_grad_() for k in ("x", "weight", "gate")]
+    assert torch.autograd.gradcheck(lambda x, w, g: R.rms_norm_plain(x, w, EPS, g, 8), args)
+
+
+def test_the_nemotron_widths_pass_every_check_before_the_devices():
+    """The Nemotron-H cell's plain rows of 2,688 and its mixer's gated rows
+    of 4,096 in groups of 512, the gate a view of ``in_proj``'s output,
+    reach the device check."""
+    g = torch.Generator().manual_seed(0)
+    plain = rms_inputs(4, NEMOTRON_HIDDEN, False, torch.bfloat16, g)
+    gated = rms_inputs(4, MIXER, True, torch.bfloat16, g, NEMOTRON_IN_PROJ)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        R._check_inputs(plain["x"], plain["weight"], None)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        R._check_inputs(gated["x"], gated["weight"], gated["gate"], NEMOTRON_GROUP)
+
+
+@pytest.mark.parametrize("group, gated, match", [
+    (500, True, "groups of a multiple of 256"), (768, True, "groups of a multiple of 256"),
+    (512, False, "only with a gate")], ids=["not_whole_warps", "not_dividing", "no_gate"])
+def test_the_kernels_path_refuses_a_group_it_does_not_take(group, gated, match):
+    x = torch.zeros(4, MIXER, dtype=torch.bfloat16)
+    gate = torch.zeros_like(x) if gated else None
+    with pytest.raises(ValueError, match=match):
+        R._check_inputs(x, torch.ones(MIXER), gate, group)
 
 
 CASES = {
@@ -287,6 +343,27 @@ def test_kernels_match_the_plain_version_on_card(shape, gated, gate_from, dtype)
     rms_compare(inp, f"{shape} gated={gated} {dtype}")
     assert (R.rms_norm.launches - before[0], R.rms_norm.forward_calls - before[1],
             R.rms_norm.backward_calls - before[2]) == (6, 2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape, gated, gate_from, group", [
+    ((NEMOTRON_ROWS, NEMOTRON_HIDDEN), False, None, None),
+    ((NEMOTRON_ROWS, MIXER), True, NEMOTRON_IN_PROJ, NEMOTRON_GROUP),
+    ((3, 1024), True, None, 256), ((5, 4096), True, 4104, 2048), ((7, 2688), True, None, None)],
+    ids=["nemotron_plain", "nemotron_grouped", "3x1024_by_256", "5x4096_by_2048", "7x2688_gated"])
+def test_grouped_and_ragged_kernels_match_the_plain_version_on_card(shape, gated, gate_from,
+                                                                     group, dtype):
+    """``chip_smoke.py`` phase 23's comparison at the Nemotron-H cell's
+    norms: its hidden rows of 2,688 (21 vectors of 128 threads' 8 and a
+    ragged last) and its mixer's gated rows of 4,096 in 8 groups of 512;
+    and groups at other widths."""
+    _need_card()
+    if group is not None and dtype == torch.float32 and group % 128:
+        pytest.skip("float32 groups are whole warps at 128 columns")
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    inp = rms_inputs(*shape, gated, dtype, gen, gate_from)
+    rms_compare(inp, f"{shape} gated={gated} group={group} {dtype}", group)
 
 
 @pytest.mark.cuda

@@ -20,7 +20,13 @@ import torch
 
 from haplohyped_tpu_torch.core.profiling import annotate, recording
 from haplohyped_tpu_torch.ops import ssd_scan as S
-from haplohyped_tpu_torch.tools.ssd_scan_check import CELL_SHAPE, ssd_compare, ssd_inputs
+from haplohyped_tpu_torch.tools.ssd_scan_check import (
+    CELL_SHAPE,
+    NEMOTRON_CHUNK,
+    NEMOTRON_SHAPE,
+    ssd_compare,
+    ssd_inputs,
+)
 
 NAMES = ("x", "dt", "A", "B", "C", "D")
 
@@ -48,6 +54,15 @@ def recurrence(x, dt, A, B, C, D):
     return torch.stack(ys, 1)
 
 
+def grouped_recurrence(x, dt, A, B, C, D):
+    """The recurrence with ``B`` and ``C`` ``(b, T, G, N)``: head ``h``
+    reads group ``h // (H / G)``."""
+    K = x.shape[2] // B.shape[2]
+    ys = [recurrence(x[:, :, h: h + 1], dt[:, :, h: h + 1], A[h: h + 1], B[:, :, h // K],
+                     C[:, :, h // K], D[h: h + 1]) for h in range(x.shape[2])]
+    return torch.cat(ys, 2)
+
+
 def _grads(fn, inp, dy):
     args = [inp[k].clone().requires_grad_() for k in NAMES]
     y = fn(*args)
@@ -63,6 +78,32 @@ def test_the_chunked_form_is_the_recurrence(T, chunk):
     want = _grads(recurrence, inp, dy)
     for name, a, b in zip(("y",) + NAMES, got, want):
         assert float((a - b).abs().max()) <= 1e-10 * float(b.abs().max()), name
+
+
+@pytest.mark.parametrize("G,H,T,chunk", [(2, 4, 40, 16), (4, 4, 33, 8), (2, 6, 300, 128),
+                                         (1, 3, 130, 128)])
+def test_the_grouped_chunked_form_is_the_recurrence(G, H, T, chunk):
+    """Groups of ``B`` and ``C`` shared by ``H / G`` heads each, and the
+    chunk of 128 the Nemotron-H mixers take (300 tokens: a padded third
+    chunk), against the per-head recurrence, forward and every gradient."""
+    inp = _inputs(2, T, H, 4, 5, seed=T + G)
+    g = torch.Generator().manual_seed(G)
+    inp["B"] = torch.randn(2, T, G, 5, generator=g, dtype=torch.float64)
+    inp["C"] = torch.randn(2, T, G, 5, generator=g, dtype=torch.float64)
+    dy = torch.randn(2, T, H, 4, generator=torch.Generator().manual_seed(2),
+                     dtype=torch.float64)
+    got = _grads(lambda *a: S.ssd_scan(*a, chunk), inp, dy)
+    want = _grads(grouped_recurrence, inp, dy)
+    for name, a, b in zip(("y",) + NAMES, got, want):
+        assert a.shape == b.shape, name
+        assert float((a - b).abs().max()) <= 1e-10 * float(b.abs().max()), name
+
+
+def test_one_group_in_four_dimensions_is_one_group_in_three():
+    inp = _inputs(1, 40, 3, 4, 5, seed=9)
+    y3 = S.ssd_scan(*(inp[k] for k in NAMES), 16)
+    four = {**inp, "B": inp["B"][:, :, None], "C": inp["C"][:, :, None]}
+    assert torch.equal(y3, S.ssd_scan(*(four[k] for k in NAMES), 16))
 
 
 def test_states_carry_across_chunks():
@@ -125,12 +166,26 @@ def test_kernels_match_the_plain_version_on_card(shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [NEMOTRON_SHAPE, (3, 640, 6, 24, 40, 3), (1, 128, 4, 32, 8, 4),
+                                   (2, 768, 8, 64, 16, 1)],
+                         ids=["nemotron_cell", "odd_groups", "one_chunk", "one_group_4d"])
+def test_grouped_kernels_at_chunk_128_match_the_plain_version_on_card(shape):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    ssd_compare(ssd_inputs(shape, gen, torch.device("cuda")), NEMOTRON_CHUNK)
+
+
+@pytest.mark.cuda
 def test_the_kernels_refuse_what_they_do_not_take():
     _need_card()
     inp = ssd_inputs((1, 512, 2, 8, 4), torch.Generator(device="cuda").manual_seed(0),
                      torch.device("cuda"))
     args = [inp[k] for k in NAMES]
     with pytest.raises(ValueError, match="chunk"):
-        S.SsdScan.apply(*args, 128)
+        S.SsdScan.apply(*args, 64)
     with pytest.raises(ValueError, match="x must be"):
         S.SsdScan.apply(args[0].float(), *args[1:], 256)
+    grouped = ssd_inputs((1, 512, 6, 8, 4, 4), torch.Generator(device="cuda").manual_seed(1),
+                         torch.device("cuda"))
+    with pytest.raises(ValueError, match="groups"):
+        S.SsdScan.apply(*(grouped[k] for k in NAMES), 128)
